@@ -21,9 +21,27 @@ Phases, in order; any failure exits non-zero:
    stage seconds, peak device memory);
 5. parity: the first windows of that run on the card and on the CPU
    (plain versions), host folds: GLF bytes identical;
-6. golden call: the one-deletion sim's VCF holds 3128 AGGG A 0/1.
+6. golden call: the one-deletion sim's VCF holds 3128 AGGG A 0/1;
+7. decode: the first 120 windows of phase 4 through the CLI with
+   --outputRealignedBAM (the full-decode route: map_state fetched and
+   decoded on the host), with windows/s, stage seconds, slab count per
+   route, realigned BAM count and kernel launches; then the first 24
+   windows on the card and on the CPU: GLF bytes and BAM records
+   identical;
+8. sentinel: 24 windows with --flankRefSeq 62, which puts most of their
+   variant flanks at the LO/RO sentinel codes, one window per slab:
+   slabs on both routes in one pass, GLF bytes identical between the
+   card and the CPU, ok rows present;
+9. pooled: the first 120 windows through indels --doPooled ->
+   mergeOutputPooled (kernel launched, device VB-EM dispatched, VCF
+   records); a warm engine pass (windows/s, stage seconds, peak device
+   memory); 24 windows on the card and on the CPU with the host EM: GLF
+   bytes identical; the device EM against the host EM on the card,
+   within the tolerance of tests/test_device_em.py (relative 2e-3,
+   absolute 1e-2).
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON, with the kernel's
+launches on each path (device call, decode, pooled); the last line is
 {"ok": true, "device": {...}}.  Needs nothing but the repository, the
 CUDA toolkit and PyTorch; imports no JAX."""
 
@@ -31,6 +49,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -42,6 +61,9 @@ NH, NR, H, L = 8, 768, 160, 100        # bench.py:158 DP geometry
 ENGINE_SLAB_WINDOWS = 4                # 4 x 6144 = 24576 pairs
 N_VARIANTS, COVERAGE, READ_LEN = 360, 30, 100   # tools/bench_windows.py
 PARITY_WINDOWS = 24
+PATH_WINDOWS = 120                     # phases 7 and 9
+SENTINEL_FLANK = 62    # phase 4's variant flanks start 58-60 bases in
+EM_RTOL, EM_ATOL = 2e-3, 1e-2          # tests/test_device_em.py:75
 
 
 def log(*a):
@@ -206,16 +228,19 @@ def simulate_bench(d: Path, n_var, coverage, read_len):
     return fa, bam, variants
 
 
-def cli_pipeline(d: Path, fa, bam, device, *indels_extra):
-    """getCIGARindels -> makeWindows -> indels -> mergeOutputDiploid
-    through the port's CLI; returns (window file, GLF, VCF, indels s)."""
+def run_cli(*argv):
+    """One `python -m dindel_tpu_torch` command, in process."""
     from dindel_tpu_torch import cli
 
-    def run(*argv):
-        rc = cli.main(list(argv))
-        if rc != 0:
-            raise SystemExit(f"CLI {argv[:2]} returned {rc}")
+    rc = cli.main([str(a) for a in argv])
+    if rc != 0:
+        raise SystemExit(f"CLI {argv[:2]} returned {rc}")
 
+
+def cli_pipeline(d: Path, fa, bam, device):
+    """getCIGARindels -> makeWindows -> indels -> mergeOutputDiploid
+    through the port's CLI; returns (window file, GLF, VCF, indels s)."""
+    run = run_cli
     run("--analysis", "getCIGARindels", "--bamFile", bam, "--ref", fa,
         "--outputFile", str(d / "cand"))
     run("--analysis", "makeWindows", "--inputVarFile",
@@ -226,10 +251,7 @@ def cli_pipeline(d: Path, fa, bam, device, *indels_extra):
     t0 = time.perf_counter()
     for wf in wins:
         out = str(d / f"out_{wf.name.split('.')[1]}")
-        run("--analysis", "indels", "--doDiploid", "--engine", "batched",
-            "--hmmBackend", "pallas", "--device", device, "--bamFile", bam,
-            "--ref", fa, "--varFile", str(wf), "--outputFile", out,
-            *indels_extra)
+        indels_cli(fa, bam, wf, out, device, "--doDiploid")
         glfs.append(out + ".glf.txt")
     indels_s = time.perf_counter() - t0
     (d / "glfs.txt").write_text("".join(g + "\n" for g in glfs))
@@ -262,17 +284,26 @@ def glf_rows_ok(glfs):
     return n, no_nan
 
 
-def engine_pass(fa, bam, win_files, glf, device, folds=None):
-    """One pass of the port's engine (the shipped configuration)."""
+def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
+                max_pairs=24576, flank=None, **attrs):
+    """One pass of the port's engine (the shipped configuration: float32,
+    fast ties); `attrs` are set on the Parameters (diploid by default),
+    `flank` is --flankRefSeq."""
     import numpy as np
     from dindel_tpu.config import Parameters
     from dindel_tpu_torch.engine.batched import BatchedWindowEngine
 
     params = Parameters()
     params.do_diploid = True
+    params.file_name = str(glf)[:-len(".glf.txt")]
+    for k, v in attrs.items():
+        setattr(params, k, v)
+    if flank is not None:
+        params.obs_params.pad_cover = flank
     eng = BatchedWindowEngine([bam], fa, params, device=device,
                               exact_ties=False, dtype=np.float32,
-                              device_folds=folds)
+                              device_folds=folds, device_em=em,
+                              max_pairs_per_slab=max_pairs)
     t0 = time.perf_counter()
     try:
         for wf in win_files:
@@ -320,25 +351,261 @@ def slice_phase(d: Path, device, n_var, coverage, read_len):
     return fa, bam, wins, launches
 
 
-def parity_phase(d: Path, fa, bam, wins, device, n_windows):
-    """The first n_windows windows on `device` and on the CPU (plain
-    versions), host folds: GLF bytes must be identical."""
+def window_subset(wins, n_windows, path: Path):
+    """The first n_windows lines of the window files, as one file;
+    returns (path, number of windows)."""
     lines = []
     for wf in wins:
         lines += [x for x in open(wf).read().splitlines() if x.strip()]
-    sub = d / "parity_win.txt"
-    sub.write_text("\n".join(lines[:n_windows]) + "\n")
-    texts = []
+    path.write_text("\n".join(lines[:n_windows]) + "\n")
+    return path, min(n_windows, len(lines))
+
+
+class Spy:
+    """While active: counts the engine's slab programs per route
+    (run_slab_stats: device call, run_slab_decode: full decode) and its
+    device VB-EM dispatches, and keeps each engine's RunStats summary at
+    close.  Wraps the names the engine module calls; restores them on
+    exit."""
+
+    NAMES = ("run_slab_stats", "run_slab_decode", "run_batched_em")
+
+    def __enter__(self):
+        from dindel_tpu_torch.engine import batched
+
+        self.mod = batched
+        self.counts = dict.fromkeys(self.NAMES, 0)
+        self.saved = {n: getattr(batched, n) for n in self.NAMES}
+        for n, real in self.saved.items():
+            def wrapped(*a, _n=n, _real=real, **k):
+                self.counts[_n] += 1
+                return _real(*a, **k)
+            setattr(batched, n, wrapped)
+        self.summaries = []
+        self.close = batched.BatchedWindowEngine.close
+
+        def close(eng):
+            self.summaries.append(eng.stats.summary())
+            return self.close(eng)
+        batched.BatchedWindowEngine.close = close
+        return self
+
+    def __exit__(self, *exc):
+        for n, real in self.saved.items():
+            setattr(self.mod, n, real)
+        self.mod.BatchedWindowEngine.close = self.close
+        return False
+
+    def stage_seconds(self):
+        out = {}
+        for s in self.summaries:
+            for k, v in s["stage_seconds"].items():
+                out[k] = round(out.get(k, 0.0) + v, 3)
+        return out
+
+    def windows_ok(self):
+        return sum(s["windows_ok"] for s in self.summaries)
+
+
+def ra_records(prefix: Path):
+    """(file suffix, [(qname, pos, cigar, flag)]) of every realigned BAM
+    written under `prefix`."""
+    from dindel_tpu.io.bam import BamReader
+
+    paths = sorted(prefix.parent.glob(prefix.name + ".ra.*.bam"))
+    return [(p.name[len(prefix.name):],
+             [(r.qname, r.pos, r.cigar, r.flag) for r in BamReader(str(p))])
+            for p in paths]
+
+
+def card_vs_cpu(d: Path, tag, fa, bam, sub, device, **kw):
+    """The same engine pass (host folds) on `device` and on the CPU:
+    returns, for each, the GLF bytes, the realigned BAM records and the
+    Spy's counts, and logs both passes."""
+    out = []
     for dev in (device, "cpu"):
-        glf = d / f"parity_{dev.replace(':', '_')}.glf.txt"
-        wall, st = engine_pass(fa, bam, [sub], glf, dev, folds=False)
-        texts.append(glf.read_bytes())
-        log(f"[parity] {dev}: {st['windows_ok']} windows ok in {wall:.3f} s")
-    same = texts[0] == texts[1]
-    log(f"[parity] {min(n_windows, len(lines))} windows, GLF "
-        f"{len(texts[0])} bytes, byte-identical {same}")
-    if not same:
+        glf = d / f"{tag}_{dev.replace(':', '_')}.glf.txt"
+        with Spy() as spy:
+            wall, st = engine_pass(fa, bam, [sub], glf, dev, folds=False,
+                                   **kw)
+        log(f"[{tag}] {dev}: {st['windows_ok']} windows ok in {wall:.3f} s; "
+            f"slabs: decode {spy.counts['run_slab_decode']}, device call "
+            f"{spy.counts['run_slab_stats']}")
+        out.append((glf.read_bytes(),
+                    ra_records(glf.parent / glf.name[:-len(".glf.txt")]),
+                    spy.counts))
+    return out
+
+
+def parity_phase(d: Path, fa, bam, wins, device, n_windows):
+    """The first n_windows windows on `device` and on the CPU (plain
+    versions), host folds: GLF bytes must be identical."""
+    sub, n = window_subset(wins, n_windows, d / "parity_win.txt")
+    (g_card, _, _), (g_cpu, _, _) = card_vs_cpu(d, "parity", fa, bam, sub,
+                                                device)
+    log(f"[parity] {n} windows, GLF {len(g_card)} bytes, byte-identical "
+        f"{g_card == g_cpu}")
+    if g_card != g_cpu:
         raise SystemExit("parity phase failed: card and CPU GLF differ")
+
+
+def indels_cli(fa, bam, win_file, out, device, *extra):
+    """One `indels --engine batched --hmmBackend pallas` CLI run; returns
+    its seconds."""
+    t0 = time.perf_counter()
+    run_cli("--analysis", "indels", "--engine", "batched", "--hmmBackend",
+            "pallas", "--device", device, "--bamFile", bam, "--ref", fa,
+            "--varFile", win_file, "--outputFile", out, *extra)
+    sync(device)
+    return time.perf_counter() - t0
+
+
+def decode_phase(d: Path, fa, bam, wins, device):
+    """Phase 7: the full-decode route (--outputRealignedBAM)."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    d.mkdir()
+    sub, n = window_subset(wins, PATH_WINDOWS, d / "win.txt")
+    pair_hmm_dp.launches = 0
+    with Spy() as spy:
+        wall = indels_cli(fa, bam, sub, d / "out", device, "--doDiploid",
+                          "--outputRealignedBAM")
+    launches = pair_hmm_dp.launches
+    n_bams = len(list(d.glob("out.ra.*.bam")))
+    n_ok, no_nan = glf_rows_ok([d / "out.glf.txt"])
+    routes = spy.counts
+    log(f"[decode] CLI --outputRealignedBAM, {n} windows: "
+        f"windows_ok {spy.windows_ok()} in {wall:.3f} s = "
+        f"{spy.windows_ok() / wall:.6g} windows/s; stage seconds "
+        f"{spy.stage_seconds()}; decode slabs {routes['run_slab_decode']}, "
+        f"device-call slabs {routes['run_slab_stats']}; realigned BAMs "
+        f"{n_bams}; kernel launches {launches}; ok GLF rows {n_ok}; no NaN "
+        f"{no_nan}")
+    if (launches <= 0 or routes["run_slab_decode"] <= 0
+            or routes["run_slab_stats"] != 0 or n_bams <= 0 or n_ok <= 0
+            or not no_nan):
+        raise SystemExit("decode phase failed: launches/routes/BAMs/rows")
+    sub, n = window_subset(wins, PARITY_WINDOWS, d / "parity_win.txt")
+    (g_card, ra_card, _), (g_cpu, ra_cpu, _) = card_vs_cpu(
+        d, "decode-parity", fa, bam, sub, device, output_realigned_bam=True)
+    n_rec = sum(len(recs) for _, recs in ra_card)
+    log(f"[decode-parity] {n} windows: GLF {len(g_card)} "
+        f"bytes identical {g_card == g_cpu}; {len(ra_card)} BAMs, {n_rec} "
+        f"records identical {ra_card == ra_cpu}")
+    if g_card != g_cpu or ra_card != ra_cpu or not n_rec:
+        raise SystemExit("decode phase failed: card and CPU differ")
+    return launches
+
+
+def sentinel_phase(d: Path, fa, bam, wins, device):
+    """Phase 8: slabs whose variant flanks reach the sentinel codes take
+    the full-decode route, the others the device-call route, in one
+    pass (one window per slab)."""
+    d.mkdir()
+    sub, n = window_subset(wins, PARITY_WINDOWS, d / "win.txt")
+    res = card_vs_cpu(d, "sentinel", fa, bam, sub, device, max_pairs=1,
+                      flank=SENTINEL_FLANK)
+    (g_card, _, routes), (g_cpu, _, _) = res
+    n_ok = sum(line.startswith(b"ok ") for line in g_card.splitlines())
+    log(f"[sentinel] --flankRefSeq {SENTINEL_FLANK}, {n} windows, one per "
+        f"slab: decode slabs {routes['run_slab_decode']}, device-call slabs "
+        f"{routes['run_slab_stats']}; ok GLF rows {n_ok}; GLF {len(g_card)} "
+        f"bytes identical {g_card == g_cpu}")
+    if (routes["run_slab_decode"] <= 0 or routes["run_slab_stats"] <= 0
+            or n_ok <= 0 or g_card != g_cpu):
+        raise SystemExit("sentinel phase failed: routes/rows/parity")
+
+
+_FLOAT = re.compile(r"^-?\d+\.?\d*(e[+-]?\d+)?$|^-?inf$|^-?nan$", re.I)
+
+
+def glf_mismatches(a: bytes, b: bytes, rtol, atol):
+    """Tokens of two GLFs that differ beyond the tolerance (as
+    tests/test_device_em.py::_compare reads them: floats packed with
+    ':,;/' may differ within rtol/atol, everything else must be equal)."""
+    al, bl = a.decode().splitlines(), b.decode().splitlines()
+    if len(al) != len(bl):
+        return [("line count", len(al), len(bl))]
+    bad = []
+    for la, lb in zip(al, bl):
+        ta, tb = la.split(" "), lb.split(" ")
+        if len(ta) != len(tb):
+            bad.append((la, lb))
+            continue
+        for xa, xb in zip(ta, tb):
+            if xa == xb:
+                continue
+            pa, pb = re.split(r"[:,;/]", xa), re.split(r"[:,;/]", xb)
+            if len(pa) != len(pb):
+                bad.append((xa, xb))
+                continue
+            for fa_, fb_ in zip(pa, pb):
+                if fa_ != fb_ and not (
+                        _FLOAT.match(fa_) and _FLOAT.match(fb_)
+                        and math.isclose(float(fa_), float(fb_),
+                                         rel_tol=rtol, abs_tol=atol)):
+                    bad.append((xa, xb))
+    return bad
+
+
+def pooled_phase(d: Path, fa, bam, wins, device):
+    """Phase 9: the pooled caller with the device VB-EM."""
+    import torch
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    d.mkdir()
+    sub, n = window_subset(wins, PATH_WINDOWS, d / "win.txt")
+    pair_hmm_dp.launches = 0
+    with Spy() as spy:
+        wall = indels_cli(fa, bam, sub, d / "out", device, "--doPooled")
+    launches = pair_hmm_dp.launches
+    (d / "glfs.txt").write_text(str(d / "out.glf.txt") + "\n")
+    run_cli("--analysis", "mergeOutputPooled", "--inputFiles",
+            d / "glfs.txt", "--ref", fa, "--outputFile", d / "pooled.vcf",
+            "--numSamples", 1, "--numBAMFiles", 1)
+    recs = vcf_records(d / "pooled.vcf")
+    n_pass = sum(r[6] == "PASS" for r in recs)
+    n_em = spy.counts["run_batched_em"]
+    log(f"[pooled] CLI --doPooled, {n} windows (cold): "
+        f"windows_ok {spy.windows_ok()} in {wall:.3f} s; kernel launches "
+        f"{launches}; device EM dispatches {n_em}; VCF records {len(recs)} "
+        f"({n_pass} PASS)")
+    if launches <= 0 or n_em <= 0 or not recs:
+        raise SystemExit("pooled phase failed: launches/EM/VCF")
+
+    pooled = dict(do_diploid=False, estimate_hap_freqs=True)
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    wall, st = engine_pass(fa, bam, [sub], d / "warm.glf.txt", device,
+                           **pooled)
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    stages = {k: round(v, 3) for k, v in st["stage_seconds"].items()}
+    log(f"[pooled] warm pass: windows_ok {st['windows_ok']} windows_error "
+        f"{st['windows_error']} in {wall:.3f} s = "
+        f"{st['windows_ok'] / wall:.6g} windows/s; stage seconds {stages}; "
+        f"max_memory_allocated {peak} bytes")
+    if st["windows_ok"] <= 0 or stages.get("device_em", 0) <= 0:
+        raise SystemExit("pooled phase failed: warm pass")
+
+    psub, pn = window_subset(wins, PARITY_WINDOWS, d / "parity_win.txt")
+    (g_card, _, _), (g_cpu, _, _) = card_vs_cpu(
+        d, "pooled-parity", fa, bam, psub, device, em=False, **pooled)
+    log(f"[pooled-parity] {pn} windows, host EM: GLF "
+        f"{len(g_card)} bytes identical {g_card == g_cpu}")
+    if g_card != g_cpu or b"singlevariant" not in g_card:
+        raise SystemExit("pooled phase failed: card and CPU differ")
+
+    wall, st = engine_pass(fa, bam, [sub], d / "host_em.glf.txt", device,
+                           em=False, **pooled)
+    bad = glf_mismatches((d / "host_em.glf.txt").read_bytes(),
+                         (d / "warm.glf.txt").read_bytes(), EM_RTOL, EM_ATOL)
+    log(f"[pooled-em] {n} windows on {device}: device EM vs host "
+        f"EM (host pass {wall:.3f} s), rtol {EM_RTOL} atol {EM_ATOL}: "
+        f"{len(bad)} tokens beyond tolerance {bad[:3]}")
+    if bad:
+        raise SystemExit("pooled phase failed: device EM vs host EM")
+    return launches
 
 
 def golden_phase(d: Path, device):
@@ -394,6 +661,10 @@ def main() -> int:
                                               N_VARIANTS, COVERAGE, READ_LEN)
         parity_phase(tmp / "slice", fa, bam, wins, dev, PARITY_WINDOWS)
         golden_phase(tmp / "golden", dev)
+        by_path = dict(device_call=launches)
+        by_path["decode"] = decode_phase(tmp / "decode", fa, bam, wins, dev)
+        sentinel_phase(tmp / "sentinel", fa, bam, wins, dev)
+        by_path["pooled"] = pooled_phase(tmp / "pooled", fa, bam, wins, dev)
 
     fast = slab["fast"]
     log(f"[kernel] bench-geometry fast fold: {bench['fast']['ms']!r} ms, "
@@ -404,6 +675,7 @@ def main() -> int:
         "source": "dindel_tpu_torch/csrc/pair_hmm_dp.cu",
         "replaces": "dindel_tpu/hmm/pallas_kernel.py:107",
         "launches": launches,
+        "launches_by_path": by_path,
         "max_abs_err": max(v["max_abs_err"] for r in (bench, slab)
                            for v in r.values()),
         "ms": fast["ms"],

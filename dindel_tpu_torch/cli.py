@@ -2,11 +2,13 @@
 
 The same options as ``python -m dindel_tpu`` (the parser is
 ``dindel_tpu.cli.build_parser``) plus ``--device`` (default ``cuda``).
-``--analysis indels`` runs this package's batched diploid engine; every
-other verb (getCIGARindels, makeWindows, mergeOutputDiploid, ...) is
-host-only and delegates to ``dindel_tpu.cli.main``.
+``--analysis indels`` runs this package's batched engine; every other
+verb (getCIGARindels, makeWindows, mergeOutputDiploid,
+mergeOutputPooled, ...) is host-only and delegates to
+``dindel_tpu.cli.main``.
 
-``indels`` supports ``--doDiploid --engine batched``:
+``indels --engine batched`` supports ``--doDiploid`` and ``--doPooled``
+(alone or together), ``--outputRealignedBAM`` and ``--opl``.
 ``--hmmBackend pallas`` selects the fast tie fold with the argmax finish
 (the shipped configuration), the default ``--hmmBackend jax`` (and
 ``oracle``) the exact EPS/TIE fold with the exact sequential finish;
@@ -51,12 +53,6 @@ def _unsupported(args) -> None:
          "item 9"),
         (args.faster,
          "--faster (the streaming sparse HMM): ROADMAP Queue 1 item 9"),
-        (args.doPooled,
-         "--doPooled (pooled calling, device_em._em_kernel): ROADMAP "
-         "Queue 1 item 7"),
-        (args.outputRealignedBAM or args.opl,
-         "--outputRealignedBAM / --opl (the full-decode path): ROADMAP "
-         "Queue 1 item 6"),
         (bool(args.mesh), "--mesh (multi-GPU): ROADMAP Queue 1 item 11"),
         (args.stageProcs > 0,
          "--stageProcs (multi-process host staging): ROADMAP Queue 1 "

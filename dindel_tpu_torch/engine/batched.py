@@ -1,24 +1,30 @@
-"""Batched window processing on one torch device, device-call mode.
+"""Batched window processing on one torch device.
 
 Counterpart of ``dindel_tpu.engine.batched.BatchedWindowEngine``
-(engine/batched.py:88) for the diploid caller:
+(engine/batched.py:88), for the diploid and the pooled caller:
 
   1. host: read fetch + haplotype generation + NW alignment for a batch
      of windows (per-window fault isolation: failed windows become
      error_* rows, as in the reference);
   2. device: the batch's (hap, read) pairs in slabs of at most
-     max_pairs_per_slab pairs, each one slab program (hmm/slab.py:
-     expand, the CUDA DP kernel, finish, pair stats, window folds);
+     max_pairs_per_slab pairs, each one slab program (hmm/slab.py) on
+     one of two routes, chosen per slab as the JAX engine chooses:
+     - device call (the default): expand, the CUDA DP kernel, finish,
+       pair stats and window folds; six small planes come back;
+     - full decode: expand, the DP kernel, finish; map_state comes back
+       and is decoded per pair on the host (hmm/liks.py LiksView).  It
+       serves --outputRealignedBAM and --opl (the whole run) and slabs
+       whose variant flanks reach the LO/RO sentinel codes;
   3. host (one finish worker, so GLF rows stay in window order): fetch
-     the six small result planes per slab, then filter, diploid calling
-     and GLF rows from the device statistics (infer/device_call.py).
+     each slab's planes, run the pooled caller's VB-EM for the batch's
+     device-call windows in one device dispatch (infer/device_em.py),
+     then filter, pooled and diploid calling, GLF rows and realigned
+     BAMs per window.
 
-Only this mode is ported.  Everything the JAX engine routes elsewhere
-raises NotImplementedError naming the ROADMAP item: the full-decode
-path (LiksView; realigned-BAM output, --opl, and slabs whose variant
-flanks reach the LO/RO sentinel codes), pooled calling, the dense
-insert-prior path, mesh sharding and multi-process staging.  There is
-no slab rescue: a failing slab raises."""
+Not ported (NotImplementedError naming the ROADMAP item): the dense
+insert-prior path, the streaming engine and --faster, mesh sharding and
+multi-process staging.  There is no slab rescue: a failing slab
+raises."""
 
 from __future__ import annotations
 
@@ -35,15 +41,17 @@ from dindel_tpu.infer.diploid import _WindowThrow
 from dindel_tpu.out.glf import OutputData, make_glf_output
 from dindel_tpu.variants import read_window_file
 
-from ..hmm.liks import LiksStats
+from ..hmm.liks import LiksStats, decode_liks_view
 from ..hmm.pack import _round_up, merge_compact, pack_pairs_compact, pad_compact
-from ..hmm.slab import run_slab_stats
+from ..hmm.slab import run_slab_decode, run_slab_stats
 from ..infer.device_call import (build_call_tables, diploid_glf_dev,
                                  filter_haplotypes_dev, host_window_folds,
                                  pair_enum)
+from ..infer.device_em import run_batched_em
+from ..infer.diploid import diploid_glf
+from ..infer.filterhaps import filter_haplotypes
+from ..infer.pooled import em_inputs, estimate_hap_freqs_bayes_em
 from .guards import check_guards_and_on_hap
-
-_FULL_DECODE = "the full-decode path (LiksView, ROADMAP Queue 1 item 6)"
 
 
 def resolve_device(device) -> torch.device:
@@ -66,21 +74,17 @@ class BatchedWindowEngine(WindowEngine):
     fold with the argmax finish.  device_folds (default: True for
     float32, False for float64) runs the diploid read folds on the
     device; otherwise they run on the host in numpy, whose exp/log the
-    GLF byte contract is anchored to."""
+    GLF byte contract is anchored to.  device_em (the same default)
+    runs the pooled caller's VB-EM of the device-call windows on the
+    device (infer/device_em.py); otherwise, and always for full-decode
+    windows, the host loop runs it, which is the byte-parity anchor."""
 
     def __init__(self, bam_paths, fasta_path, params, libraries=None, *,
                  device="cuda", batch_windows: int = 128,
                  max_pairs_per_slab: int = 24576, exact_ties: bool = False,
-                 dtype=np.float32, device_folds: Optional[bool] = None):
-        p = params
-        if p.estimate_hap_freqs:
-            raise NotImplementedError(
-                "pooled calling (--doPooled, device_em._em_kernel) is not "
-                "ported yet: ROADMAP Queue 1 item 7")
-        if p.output_realigned_bam or p.output_pooled_likelihoods:
-            raise NotImplementedError(
-                "--outputRealignedBAM / --opl need " + _FULL_DECODE)
-        if not p.slower:
+                 dtype=np.float32, device_folds: Optional[bool] = None,
+                 device_em: Optional[bool] = None):
+        if not params.slower:
             raise NotImplementedError(
                 "--faster runs the streaming engine, not ported yet: "
                 "ROADMAP Queue 1 item 9 (per-window backends)")
@@ -97,6 +101,8 @@ class BatchedWindowEngine(WindowEngine):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         self.device_folds = (self.np_dtype == np.float32
                              if device_folds is None else device_folds)
+        self.device_em = (self.np_dtype == np.float32
+                          if device_em is None else device_em)
 
     def compute_likelihoods(self, haps, reads, left_pos):
         raise NotImplementedError(
@@ -217,8 +223,15 @@ class BatchedWindowEngine(WindowEngine):
                 items.append(self._stage_slab(slab))
         return dict(staged=staged, items=items, params=copy.copy(self.params))
 
+    def _want_device_call(self) -> bool:
+        """Realigned BAMs and --opl dumps need per-pair MLAlignments: the
+        whole run takes the full-decode route (JAX batched.py:363-367)."""
+        p = self.params
+        return not (p.output_realigned_bam or p.output_pooled_likelihoods)
+
     def _stage_slab(self, slab: List[dict]):
-        """Host pack + call tables + slab program enqueue."""
+        """Host pack (+ call tables on the device-call route) + slab
+        program enqueue.  Returns (route, slab, pks, kmap_of, planes)."""
         p = self.params
         H_max = max(max(h.size() for h in e["haps"]) for e in slab)
         L_max = max(max(r.size() for r in e["reads"]) for e in slab)
@@ -234,26 +247,31 @@ class BatchedWindowEngine(WindowEngine):
                     "the insert-size positional prior needs the dense "
                     "per-pair packing (pack_pairs), not ported yet: "
                     "ROADMAP Queue 1 item 8")
-            for e in slab:
-                e["ctab"] = build_call_tables(e["haps"], e["candidates"],
-                                              e["left_pos"], p)
-            # a flank window reaching the LO/RO sentinel codes makes the
-            # device slot-coverage fold diverge from the host column-wise
-            # computation; the JAX engine routes such slabs through its
-            # full-decode path
-            if any((e["ctab"]["v_valid"] & (e["ctab"]["v_left"] <= -3)).any()
-                   for e in slab):
-                raise NotImplementedError(
-                    "a variant flank reaches the LO/RO sentinel codes; "
-                    "this slab needs " + _FULL_DECODE)
+            use_dev = self._want_device_call()
+            if use_dev:
+                for e in slab:
+                    e["ctab"] = build_call_tables(
+                        e["haps"], e["candidates"], e["left_pos"], p)
+                # a flank window reaching the LO/RO sentinel codes
+                # (left_flank_read - padCover <= -3) makes the device
+                # slot-coverage fold diverge from the host column-wise
+                # computation: the whole slab takes the full-decode
+                # route, as in the JAX engine (batched.py:406-415)
+                use_dev = not any(
+                    (e["ctab"]["v_valid"] & (e["ctab"]["v_left"] <= -3)).any()
+                    for e in slab)
             merged = pad_compact(merge_compact(pks))
-            vtab, callmeta, kmap_of = self._call_meta(slab, merged)
+            if use_dev:
+                vtab, callmeta, kmap_of = self._call_meta(slab, merged)
         with self.stats.stage("slab_dispatch"):
+            if not use_dev:
+                return ("decode", slab, pks, None,
+                        run_slab_decode(merged, self.exact_ties, self.device))
             planes = run_slab_stats(
                 merged, vtab, callmeta, p.obs_params.max_mismatch,
                 exact_ties=self.exact_ties, device_folds=self.device_folds,
                 device=self.device)
-        return slab, pks, kmap_of, planes
+        return "stats", slab, pks, kmap_of, planes
 
     def _call_meta(self, slab: List[dict], merged: dict):
         """Per-hap variant flank tables aligned with the merged compact
@@ -312,13 +330,16 @@ class BatchedWindowEngine(WindowEngine):
 
     # ------------------------------------------------------------------
     def _finish_batch(self, batch: dict, glf_data: OutputData) -> List[dict]:
-        """Finish worker: fetch every slab's planes, then call each
-        window and write its GLF rows in window order."""
+        """Finish worker: fetch every slab's planes, run the batch's
+        device EM, then call each window and write its GLF rows in
+        window order."""
         p = batch["params"]
         liks_by_idx = {}
         with self.stats.stage("device_hmm"):
             for item in batch["items"]:
                 self._finish_slab(item, liks_by_idx, p)
+        if p.estimate_hap_freqs and self.device_em:
+            self._batch_em(batch["staged"], liks_by_idx, p)
         rows: List[dict] = []
         for e in batch["staged"]:
             if e["error"] is not None:
@@ -350,9 +371,13 @@ class BatchedWindowEngine(WindowEngine):
         glf_data.output(line)
 
     def _finish_slab(self, item, liks_by_idx: dict, params) -> None:
-        """Fetch one slab's planes and build each window's LiksStats and
-        fold results."""
-        slab, pks, kmap_of, planes = item
+        """Fetch one slab's planes and build each window's liks: (LiksView,
+        None) on the full-decode route, (LiksStats, fold results) on the
+        device-call route."""
+        route, slab, pks, kmap_of, planes = item
+        if route == "decode":
+            self._finish_slab_decode(slab, pks, planes, liks_by_idx, params)
+            return
         with self.stats.stage("slab_fetch"):
             f_plane, m_log_bq, i_plane, b_plane, base, site = [
                 t.cpu().numpy() for t in planes]
@@ -387,19 +412,99 @@ class BatchedWindowEngine(WindowEngine):
                 liks_by_idx[e["index"]] = (view, dev)
                 off += B
 
+    def _finish_slab_decode(self, slab, pks, planes, liks_by_idx,
+                            params) -> None:
+        """Full-decode route: fetch the finish outputs, map_state
+        included, and decode each window's pairs on the host."""
+        with self.stats.stage("slab_fetch"):
+            ll, off_hap, off_hap_hmq, ll_off, ll_on, map_state = [
+                t.cpu().numpy() for t in planes]
+        off = 0
+        with self.stats.stage("slab_decode"):
+            for e, pk in zip(slab, pks):
+                B = pk["hap_len"].shape[0]
+                sl = slice(off, off + B)
+                # dense per-pair code view for the decode (host gather)
+                dense = dict(H_pad=pk["H_pad"], L_pad=pk["L_pad"],
+                             hap_len=pk["hap_len"], read_len=pk["read_len"],
+                             hap_codes=pk["hap_codes_h"][pk["hap_idx"]],
+                             read_codes=pk["read_codes_r"][pk["read_idx"]])
+                liks_by_idx[e["index"]] = (decode_liks_view(
+                    e["haps"], e["reads"], dense, ll[sl], off_hap[sl],
+                    off_hap_hmq[sl], ll_off[sl], ll_on[sl], map_state[sl],
+                    params.obs_params), None)
+                off += B
+
+    def _batch_em(self, staged: List[dict], liks_by_idx: dict, p) -> None:
+        """Pooled VB-EM of every device-call window of the batch in one
+        device dispatch (JAX batched.py:287-320).  Full-decode windows
+        keep the host EM."""
+        insts, keys = [], []
+        for e in staged:
+            if e["error"] is not None or e.get("skip"):
+                continue
+            liks = liks_by_idx.get(e["index"])
+            if liks is None or liks[1] is None:
+                continue
+            view = liks[0]
+            filtered, var_cov = filter_haplotypes_dev(
+                e["haps"], e["reads"], view, e["ctab"], p,
+                p.filter_haplotypes)
+            e["_fv"] = (filtered, var_cov)
+            rlT, compat, numah = em_inputs(
+                e["haps"], e["reads"], view, p, filtered, p.bayes_type)
+            if compat.shape[0]:
+                insts.append((rlT, compat, numah))
+                keys.append(e)
+        if insts:
+            with self.stats.stage("device_em"):
+                res = run_batched_em(insts, p.bayes_a0, p.em_tol,
+                                     dtype=self.np_dtype, device=self.device)
+            for e, r in zip(keys, res):
+                e["_em_res"] = r
+
     def _call_window(self, e, liks, glf_data, p) -> List[dict]:
+        """GLF rows of one window: pooled first, then diploid (the
+        reference's order); realigned BAMs diploid first, then pooled,
+        to the same file name (DInDel.cpp:498-534, 589-633)."""
         view, dev = liks
         haps, reads = e["haps"], e["reads"]
-        check_guards_and_on_hap(view, len(haps), len(reads))
+        on_hap = check_guards_and_on_hap(view, len(haps), len(reads))
+        rows: List[dict] = []
         with self.stats.stage("calling"):
-            filtered, var_coverage = filter_haplotypes_dev(
-                haps, reads, view, e["ctab"], p, p.filter_haplotypes)
-            if not p.do_diploid:
-                return []
-            try:
-                return diploid_glf_dev(
-                    haps, reads, view, dev["base"], dev["site"], e["pos"],
-                    e["left_pos"], e["right_pos"], glf_data, e["index"],
-                    e["ctab"], p, filtered, var_coverage, "dip")
-            except _WindowThrow as err:
-                raise WindowError(str(err))
+            if dev is not None:
+                filtered, var_coverage = e.get("_fv") or filter_haplotypes_dev(
+                    haps, reads, view, e["ctab"], p, p.filter_haplotypes)
+            else:
+                filtered, var_coverage = filter_haplotypes(
+                    haps, reads, view, p, p.filter_haplotypes)
+            if p.estimate_hap_freqs:
+                rows.extend(estimate_hap_freqs_bayes_em(
+                    haps, reads, view, e["pos"], e["left_pos"],
+                    e["right_pos"], glf_data, e["index"], e["candidates"], p,
+                    filtered, var_coverage, len(self.bams), p.bayes_type,
+                    em_results=e.get("_em_res"))[2])
+            if p.do_diploid:
+                args = (e["pos"], e["left_pos"], e["right_pos"], glf_data,
+                        e["index"])
+                try:
+                    if dev is not None:
+                        rows.extend(diploid_glf_dev(
+                            haps, reads, view, dev["base"], dev["site"],
+                            *args, e["ctab"], p, filtered, var_coverage,
+                            "dip"))
+                    else:
+                        rows.extend(diploid_glf(
+                            haps, reads, view, *args, e["candidates"], p,
+                            filtered, var_coverage, "dip"))
+                except _WindowThrow as err:
+                    raise WindowError(str(err))
+            if p.output_realigned_bam:
+                for diploid, on in ((True, p.do_diploid),
+                                    (False, p.estimate_hap_freqs)):
+                    if on:
+                        self._write_realigned_bam(
+                            e["index"], haps, reads, view, on_hap,
+                            e["left_pos"], e["right_pos"], e["candidates"],
+                            diploid=diploid, params=p)
+        return rows

@@ -1,7 +1,7 @@
 """Likelihood guards: JAX-free counterpart of
 ``dindel_tpu.engine.window.check_guards_and_on_hap`` (window.py:81) for
-this package's LiksStats (the original's isinstance test imports the JAX
-package's classes)."""
+this package's LiksView and LiksStats (the original's isinstance test
+imports the JAX package's classes)."""
 
 from __future__ import annotations
 
@@ -9,14 +9,15 @@ import numpy as np
 
 from dindel_tpu.engine.reads import WindowError
 
-from ..hmm.liks import LiksStats
+from ..hmm.liks import LiksStats, LiksView
 
 
-def check_guards_and_on_hap(liks: LiksStats, nh: int, nr: int):
+def check_guards_and_on_hap(liks, nh: int, nr: int):
     """Positive-loglik abort + NaN guard + on_hap flags over the liks
     matrix (DInDel.cpp:1717-1735), array-level."""
-    if not isinstance(liks, LiksStats):
-        raise TypeError(f"expected LiksStats, got {type(liks).__name__}")
+    if not isinstance(liks, (LiksView, LiksStats)):
+        raise TypeError("expected LiksView or LiksStats, got "
+                        f"{type(liks).__name__}")
     ll = liks.ll2d
     bad = (ll > 0.1) | ~np.isfinite(ll)
     if bad.any():

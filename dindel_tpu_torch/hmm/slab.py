@@ -1,10 +1,15 @@
-"""The slab program: expand -> DP -> finish -> pair stats -> window folds.
+"""The slab programs: expand -> DP -> finish, then either pair stats and
+window folds (device-call route) or nothing more (full-decode route).
 
-Counterpart of ``dindel_tpu.hmm.batch.run_slab_stats_fused`` +
-``_finish_stats_call`` (batch.py:766-887): one compact slab of many
-windows in, six small result planes out, all on one device.  The
-(L_pad-1, B, S_half) backpointer planes never leave ``run_slab_stats``;
-the results stay on the device until the engine's batch fetch."""
+``run_slab_stats`` is the counterpart of
+``dindel_tpu.hmm.batch.run_slab_stats_fused`` + ``_finish_stats_call``
+(batch.py:766-887): one compact slab of many windows in, six small
+result planes out.  ``run_slab_decode`` is the counterpart of
+``run_packed_compact`` / ``_compact_core`` (batch.py:710-760): it
+returns the finish outputs, map_state included, for the host decode
+(hmm/liks.py LiksView).  The (L_pad-1, B, S_half) backpointer planes
+never leave either program; the results stay on the device until the
+engine's batch fetch."""
 
 from __future__ import annotations
 
@@ -39,22 +44,10 @@ def run_slab_stats(pk: dict, vtab: dict, callmeta: dict, max_mismatch: int,
                          any_mism, then cov_ok per variant slot
       base, site         the window folds (W, NP), (W, S, NP), or empty
                          when device_folds is False (host folds)."""
-    H_pad, L_pad, numT = pk["H_pad"], pk["L_pad"], pk["numT"]
+    H_pad, L_pad = pk["H_pad"], pk["L_pad"]
     t = tables_to_device(pk, device)
-    (read_codes, eq, uq, hap_codes, lpe, lpn, prior_rmq, prior_hmq,
-     obs_mid) = expand_compact(
-        H_pad, L_pad, t["eq_r"].dtype, t, (pk["log_off_hmq"], pk["log_on_hmq"]),
-        (pk["log_ins0"], pk["log_ins1"]))
-    alpha_mid, beta_mid, btf, btb = pair_hmm_dp(
-        H_pad, L_pad, numT, t["hap_len"], t["read_len"], t["b_mid"],
-        read_codes, hap_codes, eq, uq, lpe, lpn, pk["scalars"],
-        exact_ties=exact_ties,
-        bounds=dp_bounds(pk["read_len"], pk["b_mid"], L_pad))
-    ll, off_hap, off_hap_hmq, ll_off, ll_on, map_state = finish(
-        H_pad, L_pad, numT, t["b_mid"], t["hap_len"], alpha_mid, beta_mid,
-        obs_mid, prior_rmq, prior_hmq, btf, btb, exact_ties=exact_ties)
-    del btf, btb
-
+    ll, off_hap, off_hap_hmq, ll_off, ll_on, map_state = _core(
+        pk, t, exact_ties)
     vt = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
           for k, v in vtab.items()}
     V = vtab["v_left_h"].shape[1]
@@ -79,3 +72,35 @@ def run_slab_stats(pk: dict, vtab: dict, callmeta: dict, max_mismatch: int,
     b_plane = torch.cat([torch.stack([off_hap, off_hap_hmq, has_event,
                                       any_mism], dim=1), cov_ok], dim=1)
     return f_plane, m_log_bq, i_plane, b_plane, base, site
+
+
+def run_slab_decode(pk: dict, exact_ties: bool, device):
+    """Run one compact slab on `device` for the full-decode route.
+
+    Returns device tensors (ll, off_hap, off_hap_hmq, ll_off, ll_on,
+    map_state): map_state is (B, L_pad), int16 when every state code
+    fits (2*(H_pad+2) < 2**15, as batch.py:737-738 casts it), else
+    int32.  Columns at and past a pair's read_len are not defined
+    (finish.py); every consumer masks them."""
+    t = tables_to_device(pk, device)
+    out = _core(pk, t, exact_ties)
+    if 2 * (pk["H_pad"] + 2) < 2 ** 15:
+        out = out[:-1] + (out[-1].to(torch.int16),)
+    return out
+
+
+def _core(pk: dict, t: dict, exact_ties: bool):
+    """expand -> K1 -> finish on the tables `t` (pack.tables_to_device)."""
+    H_pad, L_pad, numT = pk["H_pad"], pk["L_pad"], pk["numT"]
+    (read_codes, eq, uq, hap_codes, lpe, lpn, prior_rmq, prior_hmq,
+     obs_mid) = expand_compact(
+        H_pad, L_pad, t["eq_r"].dtype, t, (pk["log_off_hmq"], pk["log_on_hmq"]),
+        (pk["log_ins0"], pk["log_ins1"]))
+    alpha_mid, beta_mid, btf, btb = pair_hmm_dp(
+        H_pad, L_pad, numT, t["hap_len"], t["read_len"], t["b_mid"],
+        read_codes, hap_codes, eq, uq, lpe, lpn, pk["scalars"],
+        exact_ties=exact_ties,
+        bounds=dp_bounds(pk["read_len"], pk["b_mid"], L_pad))
+    return finish(H_pad, L_pad, numT, t["b_mid"], t["hap_len"], alpha_mid,
+                  beta_mid, obs_mid, prior_rmq, prior_hmq, btf, btb,
+                  exact_ties=exact_ties)

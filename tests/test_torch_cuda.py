@@ -1,12 +1,16 @@
 """dindel_tpu_torch on the card: the CUDA DP kernel against its plain
-PyTorch version, and the slab program and engine on CUDA against the
-CPU.  Every test is marked ``cuda`` and skips without a CUDA device
+PyTorch version, and the slab programs (both routes), the pooled VB-EM
+and the engine on CUDA against the CPU.  Every test is marked ``cuda`` and skips without a CUDA device
 (the kernel has no CPU mode).  This file imports no JAX, so it also runs
 on a GPU host that has none; tests/conftest.py imports JAX, hence
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-there.  All comparisons are exact."""
+there.  All comparisons are exact, except the VB-EM's (float64, to
+1e-9 relative: torch's reductions may associate differently on the
+card)."""
+
+import glob
 
 import numpy as np
 import pytest
@@ -14,15 +18,18 @@ import torch
 
 from dindel_tpu.config import ObservationModelParameters, Parameters
 from dindel_tpu.engine.candidates import get_candidates
+from dindel_tpu.io.bam import BamReader
 from dindel_tpu.pipeline.windows import make_windows
 from dindel_tpu.sim import PlantedVariant, SimConfig, simulate
 from dindel_tpu_torch.engine.batched import BatchedWindowEngine
 from dindel_tpu_torch.hmm.dp_ref import dp_bounds, dp_ref
 from dindel_tpu_torch.hmm.expand import expand_compact
+from dindel_tpu_torch.hmm.liks import LiksView
 from dindel_tpu_torch.hmm.pack import (merge_compact, pack_pairs_compact,
                                        pad_compact, synth_windows,
                                        tables_to_device)
-from dindel_tpu_torch.hmm.slab import run_slab_stats
+from dindel_tpu_torch.hmm.slab import run_slab_decode, run_slab_stats
+from dindel_tpu_torch.infer.device_em import run_batched_em
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -97,9 +104,75 @@ def test_run_slab_stats_card_equals_cpu(cuda, exact_ties):
         assert torch.equal(c, g.cpu())
 
 
-def test_engine_card_equals_cpu(cuda, tmp_path):
+def test_slab_decode_and_liks_view_card_equals_cpu(cuda):
+    """The full-decode route: run_slab_decode's planes, and every
+    LiksView array over them, on the consumed columns."""
+    windows = synth_windows(3, nh=3, nr=12, H=60, L=30, seed=2)
+    params = ObservationModelParameters()
+    pks = [pack_pairs_compact(haps, reads, hs, params, np.float32, H_pad=78,
+                              L_pad=32) for haps, reads, hs in windows]
+    merged = pad_compact(merge_compact(pks))
+    planes = {}
+    for dev in ("cpu", cuda):
+        planes[str(dev)] = [t.cpu().numpy()
+                            for t in run_slab_decode(merged, False, dev)]
+    cpu, gpu = planes["cpu"], planes[str(cuda)]
+    for c, g in zip(cpu[:5], gpu[:5]):
+        assert c.dtype == g.dtype and np.array_equal(c, g)
+    off = 0
+    for (haps, reads, _), pk in zip(windows, pks):
+        B = pk["hap_len"].shape[0]
+        dense = dict(H_pad=pk["H_pad"], L_pad=pk["L_pad"],
+                     hap_len=pk["hap_len"], read_len=pk["read_len"],
+                     hap_codes=pk["hap_codes_h"][pk["hap_idx"]],
+                     read_codes=pk["read_codes_r"][pk["read_idx"]])
+        valid = (np.arange(pk["L_pad"])[None, :]
+                 < pk["read_len"][:, None])
+        assert np.array_equal(cpu[5][off:off + B][valid],
+                              gpu[5][off:off + B][valid])
+        vc, vg = [LiksView(haps, reads, dense,
+                           *[a[off:off + B] for a in pl], params)
+                  for pl in (cpu, gpu)]
+        for k in ("fb", "lb", "n_bqt", "n_mm_bqt", "n_mm_left",
+                  "n_mm_right", "num_mm", "m_log_bq", "has_event",
+                  "any_mism"):
+            assert np.array_equal(getattr(vc, k), getattr(vg, k)), k
+        for k in ("xs", "hpos_all"):
+            assert np.array_equal(getattr(vc, k)[valid],
+                                  getattr(vg, k)[valid]), k
+        assert vc.materialize() == vg.materialize()
+        off += B
+
+
+def test_device_em_card_equals_cpu_f64(cuda):
+    rng = np.random.RandomState(3)
+    insts = []
+    for _ in range(9):
+        nr, nh = rng.randint(5, 90), rng.randint(2, 7)
+        compat = rng.rand(rng.randint(1, 4), nh) < 0.7
+        compat[:, 0] = True
+        insts.append((-np.abs(rng.randn(nr, nh)) * rng.uniform(1, 30),
+                      compat, compat.sum(axis=1).astype(np.float64)))
+    cpu = run_batched_em(insts, 0.001, 1e-4, dtype=np.float64, device="cpu")
+    gpu = run_batched_em(insts, 0.001, 1e-4, dtype=np.float64, device=cuda)
+    for wc, wg in zip(cpu, gpu):
+        assert len(wc) == len(wg)
+        for (lc, pc), (lg, pg) in zip(wc, wg):
+            np.testing.assert_allclose(lg, lc, rtol=1e-9)
+            np.testing.assert_allclose(pg, pc, rtol=1e-9)
+
+
+def _ra_records(prefix):
+    return [(p[len(prefix):], [(r.qname, r.pos, r.cigar, r.flag)
+                               for r in BamReader(p)])
+            for p in sorted(glob.glob(prefix + ".ra.*.bam"))]
+
+
+@pytest.mark.parametrize("realigned", [False, True])
+def test_engine_card_equals_cpu(cuda, tmp_path, realigned):
     """The shipped configuration (fast ties, float32, host folds) on the
-    card writes the same GLF bytes as on the CPU, through the kernel."""
+    card writes the same GLF bytes as on the CPU, through the kernel; with
+    --outputRealignedBAM (the full-decode route) the same BAM records."""
     from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
 
     variants = [PlantedVariant(pos=600, var="-ACG", genotype=1),
@@ -109,10 +182,12 @@ def test_engine_card_equals_cpu(cuda, tmp_path):
                        seed=9)
     var_file, _ = get_candidates(bam, str(tmp_path / "cand"), fa)
     win_files = make_windows(var_file, str(tmp_path / "win"))
-    glfs = []
+    glfs, bams = [], []
     for dev in ("cpu", "cuda"):
         params = Parameters()
         params.do_diploid = True
+        params.output_realigned_bam = realigned
+        params.file_name = str(tmp_path / dev)
         eng = BatchedWindowEngine([bam], fa, params, device=dev,
                                   dtype=np.float32, device_folds=False)
         n0 = pair_hmm_dp.launches
@@ -121,6 +196,9 @@ def test_engine_card_equals_cpu(cuda, tmp_path):
             eng.detect_indels(wf, glf)
         eng.close()
         glfs.append(open(glf).read())
+        bams.append(_ra_records(str(tmp_path / dev)))
     assert pair_hmm_dp.launches > n0
     assert "dip.map" in glfs[0]
     assert glfs[0] == glfs[1]
+    assert bool(bams[0]) == realigned
+    assert bams[0] == bams[1]

@@ -5,7 +5,8 @@ fast ties (the shipped configuration) against the JAX XLA float32
 engine, and float64 with exact ties against the JAX float64 engine, both
 with host folds.  The device folds must give the same VCF.  The CLI
 makes the golden call and raises NotImplementedError for every option
-the port does not have."""
+the port does not have; --doPooled, --outputRealignedBAM and --opl run
+end to end on the CPU."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ import torch
 from dindel_tpu.config import Parameters
 from dindel_tpu.engine.batched import BatchedWindowEngine as JaxEngine
 from dindel_tpu.engine.candidates import get_candidates
+from dindel_tpu.io.bam import BamReader
 from dindel_tpu.pipeline.merge_diploid import merge_output_diploid
 from dindel_tpu.pipeline.windows import make_windows
 from dindel_tpu.sim import PlantedVariant, SimConfig, simulate
@@ -122,8 +124,8 @@ def golden_sim(tmp_path_factory):
     return tmp, fa, bam, str(tmp / "win.1.txt")
 
 
-def _indels(fa, bam, wf, out, *extra):
-    return ["--analysis", "indels", "--doDiploid", "--engine", "batched",
+def _indels(fa, bam, wf, out, *extra, caller="--doDiploid"):
+    return ["--analysis", "indels", caller, "--engine", "batched",
             "--bamFile", bam, "--ref", fa, "--varFile", wf,
             "--outputFile", out, *extra]
 
@@ -160,8 +162,66 @@ def test_cli_device_cuda_without_cuda_raises(golden_sim):
                          "cuda"))
 
 
+def test_cli_pooled_cpu(tmp_path):
+    """--doPooled alone on the three-indel sim of
+    tests/test_pooled.py::test_pooled_end_to_end (one window fails the
+    depth filter, so the sim needs several), then mergeOutputPooled: the
+    VCF passes all three planted indels."""
+    fa, bam = simulate(str(tmp_path / "sim"),
+                       [PlantedVariant(pos=650, var="-CT", genotype=1),
+                        PlantedVariant(pos=1500, var="-GAT", genotype=1),
+                        PlantedVariant(pos=2400, var="+AC", genotype=1)],
+                       SimConfig(ref_len=3100, coverage=25, read_len=70),
+                       seed=21)
+    var_file, _ = get_candidates(bam, str(tmp_path / "cand"), fa)
+    wf = make_windows(var_file, str(tmp_path / "win"))[0]
+    out = str(tmp_path / "pooled")
+    assert cli.main(_indels(fa, bam, wf, out, "--hmmBackend", "pallas",
+                            "--device", "cpu", caller="--doPooled")) == 0
+    glf = open(out + ".glf.txt").read()
+    assert "singlevariant" in glf and "dip.map" not in glf
+    (tmp_path / "glfs.txt").write_text(out + ".glf.txt\n")
+    assert cli.main(["--analysis", "mergeOutputPooled", "--inputFiles",
+                     str(tmp_path / "glfs.txt"), "--ref", fa, "--outputFile",
+                     str(tmp_path / "pooled.vcf"), "--numSamples", "1",
+                     "--numBAMFiles", "1"]) == 0
+    recs = [line.split("\t") for line in open(tmp_path / "pooled.vcf")
+            if not line.startswith("#")]
+    assert [(int(r[1]), r[3], r[4], r[6]) for r in recs] == [
+        (3082, "TCC", "T", "PASS"), (3932, "AGGG", "A", "PASS"),
+        (4832, "G", "GAC", "PASS")]
+
+
+def test_cli_realigned_bam_cpu(golden_sim):
+    """--outputRealignedBAM: one BAM per window, holding reads."""
+    tmp, fa, bam, wf = golden_sim
+    (tmp / "ra").mkdir()
+    out = str(tmp / "ra" / "out")
+    assert cli.main(_indels(fa, bam, wf, out, "--outputRealignedBAM",
+                            "--device", "cpu")) == 0
+    assert "dip.map" in open(out + ".glf.txt").read()
+    bams = sorted((tmp / "ra").glob("out.ra.*.bam"))
+    assert bams
+    assert any(rec.cigar for b in bams for rec in BamReader(str(b)))
+
+
+def test_cli_opl_cpu(golden_sim):
+    """--opl with both callers: the pooled dumps and the diploid check
+    table are written."""
+    tmp, fa, bam, wf = golden_sim
+    (tmp / "opl").mkdir()
+    out = str(tmp / "opl" / "out")
+    assert cli.main(_indels(fa, bam, wf, out, "--doPooled", "--opl",
+                            "--device", "cpu")) == 0
+    glf = open(out + ".glf.txt").read()
+    assert "singlevariant" in glf and "dip.map" in glf
+    for pat in ("out.*.liks", "out.*.hapvars", "out.*.hapfreqs",
+                "out.check.txt"):
+        assert list((tmp / "opl").glob(pat)), pat
+
+
 @pytest.mark.parametrize("extra", [
-    ["--doPooled"], ["--outputRealignedBAM"], ["--opl"], ["--mesh", "2x1"],
+    ["--mesh", "2x1"],
     ["--stageProcs", "2"], ["--faster"], ["--engine", "streaming"]])
 def test_cli_unsupported_raises(extra):
     argv = _indels("ref.fa", "reads.bam", "win.txt", "out", "--device",

@@ -198,6 +198,7 @@ def test_synth_windows_equal():
 
 
 _NO_JAX = textwrap.dedent("""
+    import glob
     import sys
     sys.modules["jax"] = None  # every `import jax` now raises ImportError
     sys.path.insert(0, {repo!r})
@@ -214,12 +215,22 @@ _NO_JAX = textwrap.dedent("""
                      "--ref", fa, "--outputFile", "cand"]) == 0
     assert cli.main(["--analysis", "makeWindows", "--inputVarFile",
                      "cand.variants.txt", "--windowFilePrefix", "win"]) == 0
-    assert cli.main(["--analysis", "indels", "--doDiploid", "--engine",
-                     "batched", "--hmmBackend", "pallas", "--device", "cpu",
-                     "--bamFile", bam, "--ref", fa, "--varFile",
-                     "win.1.txt", "--outputFile", "out"]) == 0
-    glf = open("out.glf.txt").read()
+    def indels(out, *extra):
+        assert cli.main(["--analysis", "indels", "--engine", "batched",
+                         "--hmmBackend", "pallas", "--device", "cpu",
+                         "--bamFile", bam, "--ref", fa, "--varFile",
+                         "win.1.txt", "--outputFile", out, *extra]) == 0
+        return open(out + ".glf.txt").read()
+
+    glf = indels("out", "--doDiploid")
     assert "dip" in glf, glf
+    # the full-decode route (LiksView, host callers, realigned BAMs)
+    glf = indels("ra", "--doDiploid", "--outputRealignedBAM", "--opl")
+    assert "dip.map" in glf, glf
+    assert glob.glob("ra.ra.*.bam") and glob.glob("ra.check.txt")
+    # the pooled caller with its device EM, beside the diploid caller
+    glf = indels("pooled", "--doPooled", "--doDiploid")
+    assert "singlevariant" in glf and "dip.map" in glf, glf
     assert sys.modules["jax"] is None
     assert not [m for m in sys.modules if m.startswith(("jax.", "jaxlib"))]
     print("NO_JAX_OK")
