@@ -7,12 +7,20 @@ Phases, in order; any failure exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles the CUDA pair-HMM DP kernel from
-   dindel_tpu_torch/csrc/ (nvcc, sm_90a) and prints the build time;
-3. kernel vs plain, on the card, at the DP bench geometry (8 haps x 768
-   reads, H=160, L=100) and at one engine-sized slab (24576 pairs), in
-   both fold modes: alpha/beta bit-equal, backpointer codes equal on the
-   consumed rows, the six finish outputs equal; then both timed with
-   CUDA events over chained calls (DP cells/s, cells = B*L*2*(H+2)*numT);
+   dindel_tpu_torch/csrc/ (nvcc, sm_90a, four translation units in
+   parallel), prints the build time, ptxas's registers and spills, and
+   the SASS instruction counts of the main-path kernel's two step loops
+   (cuobjdump);
+3. kernel vs plain, on the card: edge shapes (S_half not a multiple of
+   32 and up to 1024, odd S_half, numT 2..15, B not a multiple of the
+   pairs per block, b_mid at 0 and at read_len-1, a zero-length hap,
+   float64) in both fold modes, alpha/beta and backpointer codes
+   bit-equal; then the DP bench geometry (8 haps x 768 reads, H=160,
+   L=100) and one engine-sized slab (24576 pairs), in both fold modes:
+   alpha/beta bit-equal, backpointer codes equal on the consumed rows,
+   the six finish outputs equal; then both timed with CUDA events over
+   chained calls (DP cells/s, cells = B*L*2*(H+2)*numT) beside the
+   kernel's bound (bytes and operations) and the share of it reached;
 4. the slice at realistic size: 360 planted indels, 30x, 100 bp reads
    (seed 3), through the CLI entry points getCIGARindels -> makeWindows
    -> indels --doDiploid --engine batched --hmmBackend pallas --device
@@ -64,6 +72,10 @@ PARITY_WINDOWS = 24
 PATH_WINDOWS = 120                     # phases 7 and 9
 SENTINEL_FLANK = 62    # phase 4's variant flanks start 58-60 bases in
 EM_RTOL, EM_ATOL = 2e-3, 1e-2          # tests/test_device_em.py:75
+# one H100 SXM at 700 W (NVIDIA's datasheet): HBM bytes/s and the
+# float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def log(*a):
@@ -78,6 +90,89 @@ def card_line() -> str:
 
 
 # ---------------------------------------------------------------------------
+# phase 2: the kernel's step loops in SASS
+
+# instruction classes of the integer/logic ("ALU") pipe; the rest (FADD,
+# IMAD, SHFL, loads/stores, branches) counted apart
+ALU_OPS = ("ISETP", "FSETP", "SEL", "FSEL", "LOP3", "IADD3", "SHF", "PRMT",
+           "P2R", "R2P", "PLOP3", "FMNMX", "IMNMX", "VIADD", "LEA")
+
+
+def sass_step_loops(so, kernel):
+    """Instruction counts of the two largest loops (the forward and the
+    backward step loop) of the kernel whose mangled name contains
+    `kernel`, from `cuobjdump -sass`: [(instructions, ALU-class
+    instructions, {opcode: count})] in address order; None when
+    cuobjdump is missing.  The blocks a step branches over are left out
+    when they hold the b_mid row's float stores or the odd-S_half byte
+    stores and none of the 2-byte backpointer stores (they run once per
+    pass, or never at even S_half)."""
+    import collections
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    for func in re.split(r"\n\s*Function : ", sass)[1:]:
+        if kernel not in func.split("\n", 1)[0]:
+            continue
+        ins = [(int(a, 16), t.strip()) for a, t in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", func)]
+        loops = []
+        for addr, text in ins:
+            m = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)", text)
+            if m and int(m.group(1), 16) < addr:
+                loops.append((int(m.group(1), 16), addr))
+        loops = sorted(sorted(loops, key=lambda t: t[0] - t[1])[:2])
+        def opcode(text):
+            return text.split()[1 if text.startswith("@") else 0]
+
+        skipped = set()
+        for addr, text in ins:
+            m = re.search(r"\bBRA\s+(?:`\()?0x([0-9a-f]+)", text)
+            if not m or int(m.group(1), 16) <= addr:
+                continue
+            region = [(a, opcode(t)) for a, t in ins
+                      if addr < a < int(m.group(1), 16)]
+            kinds = {op for _, op in region if op.startswith("STG")}
+            if kinds & {"STG.E", "STG.E.64", "STG.E.U8"} and \
+                    "STG.E.U16" not in kinds:
+                skipped |= {a for a, _ in region}
+        out = []
+        for lo, hi in loops:
+            ops = collections.Counter(
+                opcode(t).split(".")[0] for a, t in ins
+                if lo <= a <= hi and a not in skipped)
+            out.append((sum(ops.values()),
+                        sum(n for op, n in ops.items() if op in ALU_OPS),
+                        dict(ops.most_common())))
+        return out
+    return None
+
+
+def sm_clock_hz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def issue_bounds(loops, B, bounds, clock_hz, sms=132):
+    """Lower bounds of one call's time from the step loops' instruction
+    counts: every instruction at 128 lanes/clk/SM (issue), and the
+    ALU-class ones at 64 lanes/clk/SM (the SM's 64 INT32 lanes); ms."""
+    L_act, MB, MN = bounds
+    (nf, af, _), (nb, ab, _) = loops
+    lanes = 32 * B
+    issue = lanes * (nf * MB + nb * (L_act - 1 - MN)) / (sms * 128)
+    alu = lanes * (af * MB + ab * (L_act - 1 - MN)) / (sms * 64)
+    return issue / clock_hz * 1e3, alu / clock_hz * 1e3
+
+
+# ---------------------------------------------------------------------------
 # phase 3: kernel vs plain
 
 
@@ -85,7 +180,7 @@ def dp_inputs(n_windows, seed, device):
     """A compact slab of synthetic windows of the bench geometry,
     expanded on `device`."""
     import numpy as np
-    from dindel_tpu.config import ObservationModelParameters
+    from dindel_tpu_torch.config import ObservationModelParameters
     from dindel_tpu_torch.hmm.dp_ref import dp_bounds
     from dindel_tpu_torch.hmm.expand import expand_compact
     from dindel_tpu_torch.hmm.pack import (merge_compact, pack_pairs_compact,
@@ -113,6 +208,137 @@ def dp_inputs(n_windows, seed, device):
     return pk, args, bounds, fin
 
 
+def dp_bound(B, H_pad, L_pad, numT, bounds, itemsize=4):
+    """The least time the card could take for one DP call on these
+    inputs: (bound_ms, bound_by, state_steps).  Bytes: every input read
+    once, amid/bmid and the backpointer rows this call writes (MB forward
+    and L_act-1-MN backward rows of B*S_half bytes) written once.
+    Operations: per state-step the two emission adds, the noins fold
+    (numT candidates, two adds and a compare each at most) and the ins
+    fold (two candidates): 3*numT + 5 float adds and compares, at the
+    card's float32 rate."""
+    L_act, MB, MN = bounds
+    SP = H_pad + 2
+    steps = MB + (L_act - 1 - MN)
+    state_steps = B * SP * steps
+    read = B * (3 * 4 + L_pad + H_pad + 2 * L_pad * itemsize
+                + 2 * SP * itemsize)
+    written = 2 * B * 2 * SP * itemsize + state_steps
+    t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
+    t_ops = state_steps * (3 * numT + 5) / F32_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", state_steps
+    return t_ops, "operations", state_steps
+
+
+def edge_inputs(B, H_pad, L_pad, numT, dtype, seed, device, b_mid="rand",
+                zero_hap=False):
+    """Random DP inputs at one shape, with values on a 0.25 grid so that
+    candidates tie often (the fold order and ranks are exercised)."""
+    import numpy as np
+    import torch
+    from dindel_tpu_torch.hmm.dp_ref import dp_bounds
+
+    rng = np.random.RandomState(seed)
+    SP = H_pad + 2
+    hl = rng.randint(1, H_pad + 1, size=B)
+    hl[0], hl[-1] = H_pad, 1
+    if zero_hap:
+        hl[B // 2] = 0
+    rl = rng.randint(2, L_pad + 1, size=B)
+    rl[0] = L_pad
+    bm = {"zero": np.zeros(B, int), "last": rl - 1}.get(
+        b_mid, np.array([rng.randint(0, r) for r in rl]))
+    codes = np.frombuffer(b"ACGTN", np.uint8)
+
+    def grid(shape, lo, hi):
+        return np.round(rng.uniform(lo, hi, size=shape) * 4) / 4
+
+    dt = torch.float32 if dtype == "float32" else torch.float64
+    t = lambda a, d: torch.as_tensor(np.ascontiguousarray(a), dtype=d,  # noqa
+                                     device=device)
+    args = [H_pad, L_pad, numT, t(hl, torch.int32), t(rl, torch.int32),
+            t(bm, torch.int32),
+            t(codes[rng.randint(0, 5, size=(B, L_pad))], torch.uint8),
+            t(codes[rng.randint(0, 5, size=(B, H_pad))], torch.uint8),
+            t(grid((B, L_pad), -0.5, 0.0), dt),
+            t(grid((B, L_pad), -6, -2), dt), t(grid((B, SP), -3, -0.25), dt),
+            t(grid((B, SP), -3, -0.25), dt),
+            np.array([-0.25, -4.5, -1.0, -7.0, -0.5])]
+    return args, dp_bounds(rl, bm, L_pad)
+
+
+# (name, edge_inputs keywords): S_half = H_pad + 2
+EDGE_CASES = [
+    ("S_half 32, numT 2", dict(B=7, H_pad=30, L_pad=16, numT=2,
+                               dtype="float32", seed=1)),
+    ("S_half 47 (odd)", dict(B=5, H_pad=45, L_pad=24, numT=7,
+                             dtype="float32", seed=2)),
+    ("S_half 178, B 9", dict(B=9, H_pad=176, L_pad=32, numT=7,
+                             dtype="float32", seed=3)),
+    ("S_half 178, float64", dict(B=9, H_pad=176, L_pad=32, numT=7,
+                                 dtype="float64", seed=3)),
+    ("S_half 178, numT 15", dict(B=6, H_pad=176, L_pad=32, numT=15,
+                                 dtype="float32", seed=4)),
+    ("S_half 178, numT 15, float64", dict(B=6, H_pad=176, L_pad=32, numT=15,
+                                          dtype="float64", seed=4)),
+    ("S_half 1024, numT 15", dict(B=3, H_pad=1022, L_pad=24, numT=15,
+                                  dtype="float32", seed=5)),
+    ("S_half 1024, numT 15, float64", dict(B=3, H_pad=1022, L_pad=24,
+                                           numT=15, dtype="float64", seed=5)),
+    ("S_half 1002", dict(B=5, H_pad=1000, L_pad=20, numT=7,
+                         dtype="float32", seed=6)),
+    ("S_half 302, numT 9", dict(B=5, H_pad=300, L_pad=20, numT=9,
+                                dtype="float32", seed=7)),
+    ("S_half 232, numT 3", dict(B=6, H_pad=230, L_pad=20, numT=3,
+                                dtype="float32", seed=8)),
+    ("S_half 102, float64", dict(B=6, H_pad=100, L_pad=20, numT=7,
+                                 dtype="float64", seed=9)),
+    ("b_mid 0", dict(B=6, H_pad=176, L_pad=24, numT=7, dtype="float32",
+                     seed=10, b_mid="zero")),
+    ("b_mid read_len-1", dict(B=6, H_pad=176, L_pad=24, numT=7,
+                              dtype="float32", seed=11, b_mid="last")),
+    ("zero-length hap", dict(B=6, H_pad=176, L_pad=24, numT=7,
+                             dtype="float32", seed=12, zero_hap=True)),
+    ("zero-length hap, float64", dict(B=6, H_pad=176, L_pad=24, numT=7,
+                                      dtype="float64", seed=12,
+                                      zero_hap=True)),
+]
+
+
+def dp_mismatches(k, r, bounds):
+    """Names of the DP outputs where kernel `k` and plain `r` differ
+    (backpointers on the rows the passes write)."""
+    import torch
+    L_act, MB, MN = bounds
+    pairs = {"alpha_mid": (k[0], r[0]), "beta_mid": (k[1], r[1]),
+             "btf[:MB]": (k[2][:MB], r[2][:MB]),
+             "btb[MN:L_act-1]": (k[3][MN:L_act - 1], r[3][MN:L_act - 1])}
+    return [n for n, (a, b) in pairs.items()
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+
+
+def edge_phase(device):
+    """K1 against its plain version at the edge shapes, both folds."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+    from dindel_tpu_torch.hmm.dp_ref import dp_ref
+
+    failed = []
+    for name, kw in EDGE_CASES:
+        args, bounds = edge_inputs(device=device, **kw)
+        for exact in (False, True):
+            k = pair_hmm_dp(*args, exact_ties=exact, bounds=bounds)
+            r = dp_ref(*args, exact_ties=exact, bounds=bounds)
+            sync(device)
+            bad = dp_mismatches(k, r, bounds)
+            if bad:
+                failed.append((name, "exact" if exact else "fast", bad))
+    log(f"[edge] K1 vs plain at {len(EDGE_CASES)} shapes x 2 folds: "
+        f"failed {failed}")
+    if failed:
+        raise SystemExit(f"kernel disagrees with its plain version: {failed}")
+
+
 def compare_and_time(name, n_windows, seed, device, reps, plain_reps):
     """Kernel vs plain on one slab in both fold modes; returns the rows
     for the kernel table (times of the fast fold, the shipped mode)."""
@@ -122,7 +348,6 @@ def compare_and_time(name, n_windows, seed, device, reps, plain_reps):
     from dindel_tpu_torch.hmm.finish import finish
 
     pk, args, bounds, fin = dp_inputs(n_windows, seed, device)
-    L_act, MB, MN = bounds
     B = pk["hap_len"].shape[0]
     H_pad, L_pad, numT = pk["H_pad"], pk["L_pad"], pk["numT"]
     valid = (torch.arange(L_pad, device=device)[None, :]
@@ -136,13 +361,9 @@ def compare_and_time(name, n_windows, seed, device, reps, plain_reps):
         sync(device)
         err = max((k[0] - r[0]).abs().max().item(),
                   (k[1] - r[1]).abs().max().item())
-        checks = {
-            "alpha_mid": torch.equal(k[0], r[0]),
-            "beta_mid": torch.equal(k[1], r[1]),
-            "btf[:MB]": torch.equal(k[2][:MB], r[2][:MB]),
-            "btb[MN:L_act-1]": torch.equal(k[3][MN:L_act - 1],
-                                           r[3][MN:L_act - 1]),
-        }
+        bad_dp = set(dp_mismatches(k, r, bounds))
+        checks = {n: n not in bad_dp for n in (
+            "alpha_mid", "beta_mid", "btf[:MB]", "btb[MN:L_act-1]")}
         fk = finish(H_pad, L_pad, numT, fin["b_mid"], fin["hap_len"], k[0],
                     k[1], fin["obs_mid"], fin["prior_rmq"], fin["prior_hmq"],
                     k[2], k[3], exact_ties=exact)
@@ -170,6 +391,14 @@ def compare_and_time(name, n_windows, seed, device, reps, plain_reps):
             f"({cells / ms * 1e3:.6g} cells/s), plain {plain_ms!r} ms "
             f"({cells / plain_ms * 1e3:.6g} cells/s), cells={cells}")
         out[mode] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err)
+    bound_ms, bound_by, state_steps = dp_bound(B, H_pad, L_pad, numT, bounds)
+    log(f"[bound] {name}: {state_steps} state-steps, bound {bound_ms!r} ms "
+        f"({bound_by}); share of the bound reached: fast "
+        f"{bound_ms / out['fast']['ms']:.4f}, exact "
+        f"{bound_ms / out['exact']['ms']:.4f}")
+    for v in out.values():
+        v.update(bound_ms=bound_ms, bound_by=bound_by,
+                 state_steps=state_steps, B=B, bounds=bounds)
     return out
 
 
@@ -207,7 +436,7 @@ def time_ms(fn, reps, device):
 def simulate_bench(d: Path, n_var, coverage, read_len):
     """tools/bench_windows.py's dataset: indels every 900 bp, seed 3."""
     import numpy as np
-    from dindel_tpu.sim import PlantedVariant, SimConfig, simulate
+    from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
 
     rng = np.random.RandomState(7)
     variants = []
@@ -290,7 +519,7 @@ def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
     fast ties); `attrs` are set on the Parameters (diploid by default),
     `flank` is --flankRefSeq."""
     import numpy as np
-    from dindel_tpu.config import Parameters
+    from dindel_tpu_torch.config import Parameters
     from dindel_tpu_torch.engine.batched import BatchedWindowEngine
 
     params = Parameters()
@@ -410,7 +639,7 @@ class Spy:
 def ra_records(prefix: Path):
     """(file suffix, [(qname, pos, cigar, flag)]) of every realigned BAM
     written under `prefix`."""
-    from dindel_tpu.io.bam import BamReader
+    from dindel_tpu_torch.io.bam import BamReader
 
     paths = sorted(prefix.parent.glob(prefix.name + ".ra.*.bam"))
     return [(p.name[len(prefix.name):],
@@ -609,7 +838,7 @@ def pooled_phase(d: Path, fa, bam, wins, device):
 
 
 def golden_phase(d: Path, device):
-    from dindel_tpu.sim import PlantedVariant, SimConfig, simulate
+    from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
 
     fa, bam = simulate(str(d / "sim"),
                        [PlantedVariant(pos=700, var="-ACG", genotype=1)],
@@ -643,14 +872,43 @@ def main() -> int:
     t0 = time.perf_counter()
     so = dp_kernel.build()
     log(f"[build] {so.name} in {time.perf_counter() - t0:.3f} s")
+    kern = None
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build] {line.strip()}")
+        m = re.search(r"warpI([fd])Lb([01])ELi(\d+)ELi(\d+)E", line)
+        if m:
+            kern = (f"{'f32' if m.group(1) == 'f' else 'f64'} "
+                    f"{'exact' if m.group(2) == '1' else 'fast'} "
+                    f"R={m.group(3)} numT<={m.group(4)}")
+        elif "registers" in line or "spill" in line:
+            log(f"[build] {kern}: {line.split(':', 1)[-1].strip()}")
+    # the main path's kernels: float32, S_half 178 -> R = 6, numT 7
+    loops = {}
+    for fold, tag in (("fast", "IfLb0ELi6ELi7E"), ("exact", "IfLb1ELi6ELi7E")):
+        loops[fold] = sass_step_loops(so, "pair_hmm_dp_warp" + tag)
+        log(f"[sass] {fold} fold, R=6, numT<=7: step loops (forward, "
+            f"backward): " + ("not measured (no cuobjdump)"
+                              if loops[fold] is None else "; ".join(
+                                  f"{n} instructions, {a} ALU-class, "
+                                  f"{dict(list(ops.items())[:12])}"
+                                  for n, a, ops in loops[fold])))
+    clock = sm_clock_hz()
+    log(f"[sass] max SM clock {clock / 1e6:.0f} MHz")
 
+    edge_phase(dev)
     bench = compare_and_time("bench 8x768", 1, 1, dev, reps=20,
                              plain_reps=3)
     slab = compare_and_time("engine slab 24576", ENGINE_SLAB_WINDOWS, 2,
                             dev, reps=10, plain_reps=2)
+    for name, res in (("bench 8x768", bench), ("engine slab 24576", slab)):
+        for fold, r in res.items():
+            if loops[fold] is None:
+                continue
+            t_issue, t_alu = issue_bounds(loops[fold], r["B"], r["bounds"],
+                                          clock)
+            log(f"[bound] {name} {fold}: issue bound {t_issue!r} ms, "
+                f"ALU-pipe bound {t_alu!r} ms (static step-loop counts); "
+                f"kernel {r['ms']!r} ms = {t_issue / r['ms']:.4f} of the "
+                f"issue bound, {t_alu / r['ms']:.4f} of the ALU bound")
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -680,6 +938,9 @@ def main() -> int:
                            for v in r.values()),
         "ms": fast["ms"],
         "plain_ms": fast["plain_ms"],
+        "bound_ms": fast["bound_ms"],
+        "bound_by": fast["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this DP
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,17 @@
 """dindel_tpu_torch — the Dindel indel caller on PyTorch and CUDA.
 
 A port of ``dindel_tpu`` (the JAX/TPU package, kept beside it as the
-reference) to one NVIDIA Hopper GPU.  It covers the batched diploid
-caller in device-call mode: ``--analysis indels --doDiploid --engine
-batched``.  Host staging (BAM fetch, haplotype generation, NW, GLF
-output) is imported from the JAX-free modules of ``dindel_tpu``; host
-code that lives in a module importing JAX has a counterpart here under
-the same name.  The slab program is plain PyTorch on an explicit device
-except the pair-HMM DP, which is a hand-written CUDA kernel
-(``csrc/pair_hmm_dp.cu``, wrapped by ``hmm/dp_kernel.py``).
+reference) to one NVIDIA Hopper GPU: every ``--analysis`` verb, and the
+batched engine (``--analysis indels --engine batched``) with the diploid
+and pooled callers on the device-call and full-decode routes.  The port
+is self-contained: it carries its own copy of every host module it runs
+(BAM/FASTA I/O, read fetch, haplotype generation, NW, the callers, GLF
+output, the pipeline verbs), under the same sub-paths as in
+``dindel_tpu``, and imports nothing of that package.  Its native helpers
+build from the shared sources in ``native/`` into
+``dindel_tpu_torch/build/``.  The slab program is plain PyTorch on an
+explicit device except the pair-HMM DP, which is a hand-written CUDA
+kernel (``csrc/pair_hmm_dp.cu``, wrapped by ``hmm/dp_kernel.py``).
 
 Nothing in this package imports ``jax``.
 """

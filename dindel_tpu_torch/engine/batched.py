@@ -35,12 +35,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from dindel_tpu.engine.reads import ReadBuffer, WindowError, get_reads
-from dindel_tpu.engine.window import WindowEngine
-from dindel_tpu.infer.diploid import _WindowThrow
-from dindel_tpu.out.glf import OutputData, make_glf_output
-from dindel_tpu.variants import read_window_file
-
 from ..hmm.liks import LiksStats, decode_liks_view
 from ..hmm.pack import _round_up, merge_compact, pack_pairs_compact, pad_compact
 from ..hmm.slab import run_slab_decode, run_slab_stats
@@ -48,10 +42,13 @@ from ..infer.device_call import (build_call_tables, diploid_glf_dev,
                                  filter_haplotypes_dev, host_window_folds,
                                  pair_enum)
 from ..infer.device_em import run_batched_em
-from ..infer.diploid import diploid_glf
+from ..infer.diploid import _WindowThrow, diploid_glf
 from ..infer.filterhaps import filter_haplotypes
 from ..infer.pooled import em_inputs, estimate_hap_freqs_bayes_em
-from .guards import check_guards_and_on_hap
+from ..out.glf import OutputData, make_glf_output
+from ..variants import read_window_file
+from .reads import ReadBuffer, WindowError, get_reads
+from .window import WindowEngine, check_guards_and_on_hap
 
 
 def resolve_device(device) -> torch.device:

@@ -31,8 +31,16 @@ BUILD_DIR = _PKG / "build"
 # -fmad=false: a contracted multiply-add would round once where the
 # reference rounds twice (bit parity with the plain version)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+# one translation unit per (type, fold), compiled in parallel:
+# (entry-point suffix, -D flags)
+VARIANTS = {"f32_fast": ["-DDINDEL_DP_DOUBLE=0", "-DDINDEL_DP_EXACT=0"],
+            "f32_exact": ["-DDINDEL_DP_DOUBLE=0", "-DDINDEL_DP_EXACT=1"],
+            "f64_fast": ["-DDINDEL_DP_DOUBLE=1", "-DDINDEL_DP_EXACT=0"],
+            "f64_exact": ["-DDINDEL_DP_DOUBLE=1", "-DDINDEL_DP_EXACT=1"]}
+# largest S_half = H_pad + 2: 32 lanes x 32 states
+MAX_S_HALF = 1024
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -50,21 +58,43 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the kernel library if it is not built yet; returns its
-    path.  nvcc's output (ptxas register/spill report included) is kept
-    beside it as a .log file."""
+    path.  The four translation units compile in parallel, then link
+    into one shared library; nvcc's output (ptxas register/spill report
+    included) is kept beside it as a .log file."""
     src = SOURCE.read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha1(src + repr((NVCC_FLAGS, VARIANTS)).encode()
+                          ).hexdigest()
     so = BUILD_DIR / f"libpair_hmm_dp_{digest[:16]}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{digest[:16]}.{os.getpid()}"
+    objs = {v: BUILD_DIR / f"pair_hmm_dp_{v}_{tag}.o" for v in VARIANTS}
+    procs = {v: subprocess.Popen([nvcc, *NVCC_FLAGS, *VARIANTS[v], "-c",
+                                  "-o", str(objs[v]), str(SOURCE)],
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for v in VARIANTS}
+    log, failed = [], []
+    for v, proc in procs.items():
+        out, _ = proc.communicate()
+        log.append(f"== {v}\n{out}")
+        if proc.returncode != 0:
+            failed.append(v)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                          str(SOURCE)], capture_output=True, text=True)
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *[str(o) for o in objs.values()]],
+                             capture_output=True, text=True)
+        log.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append("link")
+    for o in objs.values():
+        o.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(log))
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed}):\n" + "".join(log))
     os.replace(tmp, so)
     return so
 
@@ -75,9 +105,9 @@ def _lib():
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-            for name in ("dindel_pair_hmm_dp_f32", "dindel_pair_hmm_dp_f64"):
-                fn = getattr(lib, name)
-                fn.argtypes = [p] * 13 + [i] * 8 + [d] * 5 + [p]
+            for v in VARIANTS:
+                fn = getattr(lib, f"dindel_pair_hmm_dp_{v}")
+                fn.argtypes = [p] * 13 + [i] * 7 + [d] * 5 + [p]
                 fn.restype = ctypes.c_int
             _LIB = lib
     return _LIB
@@ -106,9 +136,9 @@ def pair_hmm_dp(H_pad, L_pad, numT, hap_len, read_len, b_mid, read_codes,
     L_act, MB, MN = bounds
     B = hap_len.shape[0]
     SP = H_pad + 2
-    if SP > 1024:
-        raise ValueError(f"pair_hmm_dp: S_half = {SP} exceeds one block "
-                         "of 1024 threads")
+    if SP > MAX_S_HALF:
+        raise ValueError(f"pair_hmm_dp: S_half = {SP} exceeds the kernel's "
+                         f"{MAX_S_HALF} states (32 lanes x 32)")
     dt = eq.dtype
     args = [hap_len.to(torch.int32).contiguous(),
             read_len.to(torch.int32).contiguous(),
@@ -119,17 +149,16 @@ def pair_hmm_dp(H_pad, L_pad, numT, hap_len, read_len, b_mid, read_codes,
             lpn.contiguous()]
     amid = torch.empty((B, 2 * SP), dtype=dt, device=dev)
     bmid = torch.empty((B, 2 * SP), dtype=dt, device=dev)
-    btf = torch.empty((L_pad - 1, B, SP), dtype=torch.int32, device=dev)
-    btb = torch.empty((L_pad - 1, B, SP), dtype=torch.int32, device=dev)
-    lib = _lib()
-    fn = (lib.dindel_pair_hmm_dp_f32 if dt == torch.float32
-          else lib.dindel_pair_hmm_dp_f64)
+    btf = torch.empty((L_pad - 1, B, SP), dtype=torch.uint8, device=dev)
+    btb = torch.empty((L_pad - 1, B, SP), dtype=torch.uint8, device=dev)
+    variant = (("f32" if dt == torch.float32 else "f64") + "_"
+               + ("exact" if exact_ties else "fast"))
+    fn = getattr(_lib(), f"dindel_pair_hmm_dp_{variant}")
     scal = [float(v) for v in np.asarray(scalars)]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*[t.data_ptr() for t in args + [amid, bmid, btf, btb]],
-                B, H_pad, L_pad, numT, L_act, MB, MN, int(exact_ties),
-                *scal, stream)
+                B, H_pad, L_pad, numT, L_act, MB, MN, *scal, stream)
     if rc != 0:
         raise RuntimeError(f"pair_hmm_dp kernel launch failed: CUDA error "
                            f"{rc}")

@@ -2,7 +2,7 @@
 
 The same contract as ``dindel_tpu.hmm.pallas_kernel.dp_pallas``: returns
 ``(alpha_mid, beta_mid, btf, btb)`` with ``btf``/``btb`` as
-``(L_pad-1, B, S_half)`` int32 planes of nibble-packed transition-class
+``(L_pad-1, B, S_half)`` uint8 planes of nibble-packed transition-class
 codes (lo nibble = noins dest, hi nibble = ins dest; decode tables in
 ``expand_bt_codes``).  It is the reference the CUDA kernel
 (csrc/pair_hmm_dp.cu) is held to bit for bit, and the path
@@ -33,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from dindel_tpu.hmm.reference import EPS, TIE
+from .reference import EPS, TIE
 
 NEGBIG = -1.0e30
 NCODE = ord("N")
@@ -194,8 +194,8 @@ def dp_ref(H_pad, L_pad, numT, hap_len, read_len, b_mid, read_codes,
 
     amid = torch.zeros((B, 2 * SP), dtype=dt, device=dev)
     bmid = torch.zeros((B, 2 * SP), dtype=dt, device=dev)
-    btf = torch.zeros((L_pad - 1, B, SP), dtype=torch.int32, device=dev)
-    btb = torch.zeros((L_pad - 1, B, SP), dtype=torch.int32, device=dev)
+    btf = torch.zeros((L_pad - 1, B, SP), dtype=torch.uint8, device=dev)
+    btb = torch.zeros((L_pad - 1, B, SP), dtype=torch.uint8, device=dev)
 
     # ---------------- forward (Dec) pass ----------------
     an = torch.zeros((B, SP), dtype=dt, device=dev)
@@ -252,7 +252,7 @@ def dp_ref(H_pad, L_pad, numT, hap_len, read_len, b_mid, read_codes,
         sel = bm == b
         amid[:, :SP] = torch.where(sel, an, amid[:, :SP])
         amid[:, SP:] = torch.where(sel, ai, amid[:, SP:])
-        btf[b - 1] = noins_c + ins_c * 16
+        btf[b - 1] = (noins_c + ins_c * 16).to(torch.uint8)
 
     # ---------------- backward (Inc) pass ----------------
     an = torch.zeros((B, SP), dtype=dt, device=dev)
@@ -317,7 +317,7 @@ def dp_ref(H_pad, L_pad, numT, hap_len, read_len, b_mid, read_codes,
         sel = bm == (b - 1)
         bmid[:, :SP] = torch.where(sel, an, bmid[:, :SP])
         bmid[:, SP:] = torch.where(sel, ai, bmid[:, SP:])
-        btb[b - 1] = noins_c + ins_c * 16
+        btb[b - 1] = (noins_c + ins_c * 16).to(torch.uint8)
     return amid, bmid, btf, btb
 
 

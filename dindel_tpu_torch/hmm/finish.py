@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from dindel_tpu.hmm.reference import EPS
+from .reference import EPS
 
 
 def finish(H_pad, L_pad, numT, b_mid, hap_len, alpha_mid, beta_mid, obs_mid,

@@ -12,8 +12,8 @@ from typing import List
 
 import numpy as np
 
-from dindel_tpu.config import ObservationModelParameters
-from dindel_tpu.model import Haplotype, MLAlignment, Read
+from ..config import ObservationModelParameters
+from ..model import Haplotype, MLAlignment, Read
 
 
 class LiksStats:
@@ -126,7 +126,7 @@ class LiksView:
             log10q = np.log10(np.maximum(1.0 - qual_b, 1e-300))
         self._qual_r = qual_b  # (nr, L_pad); pair i uses row i % nr
 
-        from dindel_tpu.hmm.decode_native import native_lib as _dec_lib
+        from .decode_native import native_lib as _dec_lib
         if _dec_lib() is not None:
             self._init_native(_dec_lib(), qual_b, log10q)
         else:
@@ -179,7 +179,7 @@ class LiksView:
         self.any_mism = any_mism.astype(bool)
 
     def _init_numpy(self, qual_b: np.ndarray, log10q: np.ndarray):
-        from dindel_tpu.model import HPOS_LO, HPOS_RO
+        from ..model import HPOS_LO, HPOS_RO
 
         nh, nr = self.nh, self.nr
         H_pad, L_pad = self.H_pad, self.L_pad
@@ -400,8 +400,8 @@ class LiksView:
         return events
 
     def _ml(self, hi: int, ri: int) -> MLAlignment:
-        from dindel_tpu.model import HPOS_INS
-        from dindel_tpu.variants import AlignedVariant
+        from ..model import HPOS_INS
+        from ..variants import AlignedVariant
 
         cached = self._cache.get((hi, ri))
         if cached is not None:

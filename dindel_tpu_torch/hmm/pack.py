@@ -23,9 +23,9 @@ from typing import List
 import numpy as np
 import torch
 
-from dindel_tpu.config import ObservationModelParameters
-from dindel_tpu.hmm.reference import _Trans, hp_log_prob_error
-from dindel_tpu.model import Haplotype, Read
+from ..config import ObservationModelParameters
+from ..model import Haplotype, Read
+from .reference import _Trans, hp_log_prob_error
 
 
 def _round_up(x: int, m: int) -> int:

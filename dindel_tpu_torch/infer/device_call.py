@@ -18,18 +18,13 @@ from typing import Dict, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
-from dindel_tpu.config import Parameters
-from dindel_tpu.infer.diploid import (_WindowThrow, _emit, _g,
-                                      _is_real_variant, get_pair_prior)
-from dindel_tpu.model import Haplotype, Read
-from dindel_tpu.out.glf import OutputData
-from dindel_tpu.utils import add_logs
-from dindel_tpu.variants import (AlignedCandidates, AlignedVariant, DEL,
-                                 INS)
-
-NEG = -math.inf
-VARSNP = 1
-VARINDEL = 2
+from ..config import Parameters
+from ..model import Haplotype, Read
+from ..out.glf import OutputData
+from ..utils import add_logs
+from ..variants import AlignedCandidates, AlignedVariant, DEL, INS
+from .diploid import (NEG, VARINDEL, VARSNP, _WindowThrow, _emit, _g,
+                      _is_real_variant, get_pair_prior)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -289,7 +284,7 @@ def filter_haplotypes_dev(haps: List[Haplotype], reads: List[Read],
     break/recording semantics to the loop implementation
     (DInDel.cpp:1932-2100), with the per-read flank scans already done
     on device."""
-    from dindel_tpu.infer.filterhaps import _strand
+    from .filterhaps import _strand
 
     num_haps = len(haps)
     nr = stats.nr

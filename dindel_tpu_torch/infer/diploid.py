@@ -1,33 +1,85 @@
-"""Diploid genotype-likelihood caller on the full-decode route: JAX-free
-counterpart of ``dindel_tpu.infer.diploid.diploid_glf``
-(diploid.py:81-419), whose ``LiksArrays`` import reaches the JAX package
-(:92).  The body is the original's over this package's LiksArrays; the
-JAX-free helpers (priors, ``_emit``, ``_g``, ``_WindowThrow``) are
-imported from the original module.  Device-call windows use
-``device_call.diploid_glf_dev`` instead."""
+"""Diploid genotype-likelihood caller, a port of DetInDel::diploidGLF
+(DInDel.cpp:2933-3662) with getPairPrior/getHaplotypePrior
+(DInDel.cpp:1835-1927).
+
+All math is float64 on the (reads x haps) log-likelihood matrix computed by
+the pair-HMM backend; per-window cost is O(nh^2 * nr) and negligible next
+to the HMM, so it runs on host for bit-stable calls."""
 
 from __future__ import annotations
 
 import math
 from typing import Dict, List, Optional, Set, Tuple
 
-import numpy as np
+from ..config import Parameters
+from ..model import Haplotype, MLAlignment, Read
+from ..out.glf import OutputData
+from ..utils import add_logs
+from ..variants import AlignedCandidates, AlignedVariant, DEL, INS, SNP
 
-from dindel_tpu.config import Parameters
-from dindel_tpu.infer.diploid import (NEG, VARINDEL, VARSNP, _WindowThrow,
-                                      _emit, _g, _is_real_variant,
-                                      get_haplotype_prior, get_pair_prior)
-from dindel_tpu.model import Haplotype, Read
-from dindel_tpu.out.debug_dumps import write_diploid_check
-from dindel_tpu.out.glf import OutputData
-from dindel_tpu.utils import add_logs
-from dindel_tpu.variants import AlignedCandidates, AlignedVariant
+NEG = -math.inf
+VARSNP = 1
+VARINDEL = 2
 
-from .arrays import LiksArrays, add_logs_arr, seq_sum
+
+def _is_real_variant(av: AlignedVariant) -> bool:
+    """The recurring guard: not *REF and not an R=>D marker
+    (DInDel.cpp:3010 and friends)."""
+    return not av.is_ref and not (av.is_snp and len(av.str) > 3 and av.str[3] == "D")
+
+
+def get_pair_prior(av1: AlignedVariant, av2: AlignedVariant, left_pos: int,
+                   candidates: AlignedCandidates, params: Parameters) -> float:
+    """DetInDel::getPairPrior (DInDel.cpp:1835-1855)."""
+    vars_: List[AlignedVariant] = []
+    for av in (av1, av2):
+        if not any(v.start_hap == av.start_hap and v.str == av.str for v in vars_):
+            vars_.append(av)
+    ll = 0.0
+    for avar in vars_:
+        lnf = 0.0
+        if avar.type == SNP:
+            lnf = math.log(params.prior_snp)
+        elif avar.type in (DEL, INS):
+            lnf = math.log(params.prior_indel)
+        av = candidates.find_variant(avar.start_hap + left_pos, avar.type, avar.str)
+        if av is None:
+            ll += lnf
+        else:
+            ll += lnf if av.freq < 0.0 else math.log(av.freq)
+    return ll
+
+
+def get_haplotype_prior(h1: Haplotype, h2: Haplotype, left_pos: int,
+                        candidates: AlignedCandidates, params: Parameters) -> float:
+    """DetInDel::getHaplotypePrior (DInDel.cpp:1857-1927)."""
+    indels: Set[Tuple[int, str]] = set()
+    snps: Set[Tuple[int, str]] = set()
+    av_of: Dict[Tuple[int, str], AlignedVariant] = {}
+    for h in (h1, h2):
+        for av in h.indels.values():
+            if "*REF" not in av.str and "=>" not in av.str:
+                key = (av.start_hap, av.str)
+                indels.add(key)
+                av_of[key] = av
+        for av in h.snps.values():
+            if "*REF" not in av.str and "=>D" not in av.str:
+                key = (av.start_hap, av.str)
+                snps.add(key)
+                av_of[key] = av
+    ll = 0.0
+    for key in sorted(indels) + sorted(snps):
+        avar = av_of[key]
+        av = candidates.find_variant(avar.start_hap + left_pos, avar.type, avar.str)
+        if av is None:
+            ll += math.log(params.prior_indel)
+        else:
+            ll += math.log(params.prior_indel) if av.freq < 0.0 else math.log(av.freq)
+    return ll
 
 
 def diploid_glf(haps: List[Haplotype], reads: List[Read],
-                liks, cand_pos: int, left_pos: int,
+                liks: List[List[MLAlignment]], cand_pos: int, left_pos: int,
                 right_pos: int, glf_data: Optional[OutputData], index: int,
                 candidates: AlignedCandidates, params: Parameters,
                 filtered: List[int],
@@ -36,6 +88,9 @@ def diploid_glf(haps: List[Haplotype], reads: List[Read],
     """Returns the list of emitted GLF rows as dicts (also written to
     glf_data when provided). filtered/var_coverage come from
     filter_haplotypes."""
+    import numpy as np
+    from .arrays import LiksArrays, add_logs_arr, seq_sum
+
     nh = len(haps)
     nr = len(reads)
     rows: List[dict] = []
@@ -278,6 +333,7 @@ def diploid_glf(haps: List[Haplotype], reads: List[Read],
             (unmapped_v & (~A.off[ghx1] | ~A.off[ghx2])).sum())
 
         if params.output_pooled_likelihoods:
+            from ..out.debug_dumps import write_diploid_check
             write_diploid_check(params.file_name, haps, reads, liks,
                                 ghx1, ghx2, left_pos)
 
@@ -361,3 +417,20 @@ def diploid_glf(haps: List[Haplotype], reads: List[Read],
         if params.output_glf:
             _emit(glf_data, row)
     return rows
+
+
+class _WindowThrow(Exception):
+    pass
+
+
+def _g(x: float) -> str:
+    return "%g" % x
+
+
+def _emit(glf_data: Optional[OutputData], row: dict) -> None:
+    if glf_data is None:
+        return
+    line = glf_data.line()
+    for k, v in row.items():
+        line.set(k, v)
+    glf_data.output(line)

@@ -1,20 +1,201 @@
-"""Haplotype filter on the full-decode route: JAX-free counterpart of
-``dindel_tpu.infer.filterhaps.filter_haplotypes`` (filterhaps.py:24),
-whose LiksView dispatch imports the JAX package (:33).  The array-level
-body is the original's ``_filter_haplotypes_view`` (:124), which is
-JAX-free.  Device-call windows use ``device_call.filter_haplotypes_dev``
-instead."""
+"""Haplotype filtering + per-variant strand coverage, a port of
+DetInDel::filterHaplotypes (DInDel.cpp:1932-2100).
+
+A haplotype survives only if each of its indels is covered by at least one
+clean read (no indels, not off-hap at high mapping quality) matching the
+flank interval with at most maxMismatch mismatches.
+
+NB: the reference's coverage loops run ``b<=hpos.size()``
+(DInDel.cpp:1995,2040), reading one element past the vector end — undefined
+behavior whose effect depends on heap garbage (it can add a phantom base to
+the coverage/mismatch counts).  This port implements the defined-behavior
+subset (``b < len``); the differential driver pins the reference's phantom
+element so both sides agree (tests/test_callers_ref.py)."""
 
 from __future__ import annotations
 
-from dindel_tpu.infer.filterhaps import _filter_haplotypes_view
+from typing import Dict, List, Tuple
 
-from ..hmm.liks import LiksView
+from ..config import Parameters
+from ..model import Haplotype, MLAlignment, Read
+from ..variants import AlignedVariant, DEL, INS
 
 
-def filter_haplotypes(haps, reads, liks, params, do_filter: bool):
-    """Returns (filtered: List[int], var_coverage: {(pos, var) -> (nf,
-    nr)}) over this package's LiksView."""
-    if not isinstance(liks, LiksView):
-        raise TypeError(f"expected LiksView, got {type(liks).__name__}")
-    return _filter_haplotypes_view(haps, reads, liks, params, do_filter)
+def filter_haplotypes(haps: List[Haplotype], reads: List[Read],
+                      liks, params: Parameters, do_filter: bool):
+    """Returns (filtered: List[int], var_coverage: {(pos, var) -> (nf, nr)}).
+
+    Dispatches to an array-level implementation when liks is an
+    hmm/liks.py LiksView (the full-decode route); the per-pair loop
+    below is the oracle-path reference implementation, differential-tested
+    against the compiled C++ in tests/test_callers_ref.py.  View-vs-loop
+    equality is asserted in tests/test_liks_view.py."""
+    from ..hmm.liks import LiksView
+    if isinstance(liks, LiksView):
+        return _filter_haplotypes_view(haps, reads, liks, params, do_filter)
+    num_haps = len(haps)
+    filtered = [0] * num_haps
+    pad = params.obs_params.pad_cover
+    max_mm = params.obs_params.max_mismatch
+    # coverage per (pos, var-string) per hap x strand
+    h_var_cov: Dict[Tuple[int, str], List[set]] = {}
+    num_filtered = 0
+
+    for h in range(num_haps):
+        sel_reads = [r for r in range(len(reads))
+                     if not liks[h][r].off_hap_hmq and liks[h][r].num_indels == 0]
+        all_covered = True
+        for p, av in sorted(haps[h].indels.items()):
+            pav = (p, av.str)
+            if pav not in h_var_cov:
+                h_var_cov[pav] = [set() for _ in range(num_haps * 2)]
+            if av.type not in (INS, DEL):
+                continue
+            left = av.left_flank_read - pad
+            right = av.right_flank_read + pad
+            ln = right - left + 1
+            covered = False
+            if av.type == DEL:
+                numdel = 0
+                for r in sel_reads:
+                    strand = _strand(reads[r])
+                    c = set()
+                    nmm = 0
+                    hpos = liks[h][r].hpos
+                    for b in range(len(hpos)):
+                        hb = hpos[b]
+                        if left <= hb <= right:
+                            c.add(hb)
+                            if haps[h].seq[hb] != "N" and haps[h].seq[hb] != reads[r].seq[b]:
+                                nmm += 1
+                    if len(c) >= ln and nmm <= max_mm:
+                        numdel += 1
+                        h_var_cov[pav][h + strand * num_haps].add(r)
+                if numdel >= 1:
+                    covered = True
+            else:  # INS
+                lenins = len(av.seq)
+                for r in sel_reads:
+                    strand = _strand(reads[r])
+                    this_covered = [0] * ln
+                    nmm = 0
+                    c = set()
+                    hpos = liks[h][r].hpos
+                    for b in range(len(hpos)):
+                        hb = hpos[b]
+                        if left <= hb <= right:
+                            this_covered[hb - left] += 1
+                            c.add(hb)
+                            if haps[h].seq[hb] != reads[r].seq[b]:
+                                nmm += 1
+                    this_read_covered = False
+                    if (lenins > 10 and nmm <= max_mm) or \
+                       (lenins <= 10 and len(c) >= ln and nmm <= max_mm):
+                        this_read_covered = all(x > 0 for x in this_covered)
+                        if this_read_covered:
+                            h_var_cov[pav][h + strand * num_haps].add(r)
+                    if this_read_covered:
+                        covered = True
+            if not covered:
+                all_covered = False
+                break
+        if do_filter and not all_covered:
+            num_filtered += 1
+            filtered[h] = 1
+
+    var_coverage: Dict[Tuple[int, str], Tuple[int, int]] = {}
+    for pav, cov in h_var_cov.items():
+        rf, rr = set(), set()
+        for h in range(num_haps):
+            if filtered[h] != 1:
+                rf |= cov[h]
+                rr |= cov[h + num_haps]
+        var_coverage[pav] = (len(rf), len(rr))
+    return filtered, var_coverage
+
+
+def _strand(read: Read) -> int:
+    """DInDel.cpp:1986-1992: unmapped reads use the mate's orientation."""
+    if read.is_unmapped:
+        return 1 if not read.mate_is_reverse else 0
+    return 1 if read.on_reverse_strand else 0
+
+
+def _filter_haplotypes_view(haps, reads, v, params, do_filter):
+    """Array-level filter_haplotypes over a LiksView: per-variant flank
+    coverage and mismatch counts as scatter/reduce over the decoded
+    hpos matrix, no per-pair Python."""
+    import numpy as np
+
+    num_haps = len(haps)
+    nh, nr = v.nh, v.nr
+    pad = params.obs_params.pad_cover
+    max_mm = params.obs_params.max_mismatch
+    filtered = [0] * num_haps
+    h_var_cov = {}
+
+    L_pad = v.L_pad
+    read_len_v = v.read_len.reshape(nh, nr)[0]
+    validc = np.arange(L_pad)[None, :] < read_len_v[:, None]
+    rchars = np.zeros((nr, L_pad), np.uint8)
+    for ri, r in enumerate(reads):
+        rchars[ri, :r.size()] = np.frombuffer(r.seq.encode(), np.uint8)
+    strand_v = np.array([_strand(r) for r in reads])
+    # num_indels == 0 iff the MAP path has no event
+    sel2d = (~v.off_hap_hmq2d) & (~v.has_event.reshape(nh, nr))
+    hpos3 = v.hpos_all.reshape(nh, nr, L_pad)
+
+    for h in range(num_haps):
+        hseq = np.frombuffer(haps[h].seq.encode(), np.uint8)
+        hp = hpos3[h]
+        sel = sel2d[h]
+        all_covered = True
+        for p, av in sorted(haps[h].indels.items()):
+            pav = (p, av.str)
+            if pav not in h_var_cov:
+                h_var_cov[pav] = [set() for _ in range(num_haps * 2)]
+            if av.type not in (INS, DEL):
+                continue
+            left = av.left_flank_read - pad
+            right = av.right_flank_read + pad
+            ln = right - left + 1
+            inr = (hp >= left) & (hp <= right) & validc
+            # distinct hap positions covered (the loop's std::set)
+            cov = np.zeros((nr, ln), bool)
+            ii, jj = np.nonzero(inr)
+            cov[ii, hp[ii, jj] - left] = True
+            c_size = cov.sum(axis=1)
+            # mismatches with multiplicity; negative hpos codes index from
+            # the sequence end exactly like the loop's Python seq[hb]
+            hchar = hseq[np.where(inr, hp, 0)]
+            mmm = inr & (hchar != rchars)
+            if av.type == DEL:
+                mmm &= np.where(inr, hchar != ord("N"), False)
+            nmm = mmm.sum(axis=1)
+            if av.type == DEL:
+                cov_r = sel & (c_size >= ln) & (nmm <= max_mm)
+                covered = bool(cov_r.any())
+            else:
+                lenins = len(av.seq)
+                base_ok = sel & (nmm <= max_mm) & ((lenins > 10)
+                                                   | (c_size >= ln))
+                cov_r = base_ok & cov.all(axis=1)
+                covered = bool(cov_r.any())
+            dst = h_var_cov[pav]
+            for r in np.nonzero(cov_r)[0]:
+                dst[h + strand_v[r] * num_haps].add(int(r))
+            if not covered:
+                all_covered = False
+                break
+        if do_filter and not all_covered:
+            filtered[h] = 1
+
+    var_coverage = {}
+    for pav, cov_sets in h_var_cov.items():
+        rf, rr = set(), set()
+        for h in range(num_haps):
+            if filtered[h] != 1:
+                rf |= cov_sets[h]
+                rr |= cov_sets[h + num_haps]
+        var_coverage[pav] = (len(rf), len(rr))
+    return filtered, var_coverage

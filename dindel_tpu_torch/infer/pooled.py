@@ -1,37 +1,167 @@
-"""Pooled (haplotype-frequency) caller: JAX-free counterparts of
-``dindel_tpu.infer.pooled.em_inputs`` (pooled.py:155) and
-``estimate_hap_freqs_bayes_em`` (:181), whose ``LiksArrays`` imports
-reach the JAX package (:163, :197).  The bodies are the original's over
-this package's LiksArrays; the JAX-free helpers (digamma, the variant
-and active-set enumeration, the priors, ``_emit``, ``_g``) are imported
-from the original module."""
+"""Pooled / haplotype-frequency caller: variational-Bayes EM with a
+Dirichlet prior, a port of DetInDel::estimateHaplotypeFrequenciesBayesEM
+(DInDel.cpp:2103-2930) plus the simple ML-EM
+(estimateHaplotypeFrequencies, DInDel.cpp:3665-3762).
+
+The EM loops run per active-variant set on the (reads x haps) log-lik
+matrix in float64; digamma is evaluated on host (math.lgamma-free series,
+matching boost::math::digamma to ~1e-15)."""
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Set, Tuple
 
-import numpy as np
+from ..config import Parameters
+from ..model import Haplotype, MLAlignment, Read
+from ..out.glf import OutputData
+from ..utils import add_logs
+from ..variants import AlignedCandidates, AlignedVariant, DEL, INS, SNP
 
-from dindel_tpu.config import Parameters
-from dindel_tpu.infer.pooled import (NEG, _build_active_sets, _collect_variants,
-                                     _compat_for, _emit, _g, _var_log_prior,
-                                     digamma)
-from dindel_tpu.model import Haplotype, Read
-from dindel_tpu.out.debug_dumps import write_pooled_dumps
-from dindel_tpu.out.glf import OutputData
-from dindel_tpu.utils import add_logs
-from dindel_tpu.variants import AlignedCandidates
+NEG = -math.inf
 
-from .arrays import LiksArrays, add_logs_arr, seq_sum
+
+def digamma(x: float) -> float:
+    """Psi function; asymptotic series after upward recurrence (agrees with
+    boost::math::digamma used at DInDel.cpp:2466,2472 to ~1e-15)."""
+    r = 0.0
+    while x < 6.0:
+        r -= 1.0 / x
+        x += 1.0
+    f = 1.0 / (x * x)
+    return (r + math.log(x) - 0.5 / x
+            - f * (1.0 / 12.0
+                   - f * (1.0 / 120.0
+                          - f * (1.0 / 252.0
+                                 - f * (1.0 / 240.0
+                                        - f * (1.0 / 132.0
+                                               - f * 691.0 / 32760.0))))))
+
+
+def _is_real_variant(av: AlignedVariant) -> bool:
+    return not av.is_ref and not (av.is_snp and len(av.str) > 3 and av.str[3] == "D")
+
+
+def _var_log_prior(av_list, candidates: AlignedCandidates, left_pos: int,
+                   params: Parameters) -> float:
+    lp = 0.0
+    for avar in av_list:
+        lnf = 0.0
+        if avar.type == SNP:
+            lnf = math.log(params.prior_snp)
+        elif avar.type in (DEL, INS):
+            lnf = math.log(params.prior_indel)
+        av = candidates.find_variant(avar.start_hap + left_pos, avar.type, avar.str)
+        if av is None:
+            lp += lnf
+        else:
+            lp += lnf if av.freq < 0.0 else math.log(av.freq)
+    return lp
+
+
+
+def _collect_variants(haps):
+    """Distinct real variants over the hap set, in (pos, str) order
+    (DInDel.cpp:2145-2174)."""
+    all_variants: List[Tuple[int, AlignedVariant]] = []
+    seen: Set[Tuple[int, str]] = set()
+    for hap in haps:
+        for p, av in hap.indels.items():
+            if _is_real_variant(av) and (p, av.str) not in seen:
+                seen.add((p, av.str))
+                all_variants.append((p, av))
+    all_variants.sort(key=lambda pa: (pa[0], pa[1].str))
+    all_by_pos: Dict[int, List[Tuple[int, AlignedVariant]]] = {}
+    for p, av in all_variants:
+        all_by_pos.setdefault(p, []).append((p, av))
+    return all_variants, all_by_pos
+
+
+def _build_active_sets(haps, filtered, program, all_variants, all_by_pos):
+    """Active-variant sets per program (DInDel.cpp:2176-2289)."""
+    active_sets: List[Set[Tuple[int, str]]] = []
+    active_snps: List[List[AlignedVariant]] = []
+    active_indels: List[List[AlignedVariant]] = []
+    av_by_key = {(p, av.str): av for p, av in all_variants}
+    nh = len(haps)
+
+    def split_set(s: Set[Tuple[int, str]]):
+        snps = sorted(k for k in s if av_by_key[k].is_snp)
+        indels = sorted(k for k in s if av_by_key[k].is_indel)
+        return [av_by_key[k] for k in snps], [av_by_key[k] for k in indels]
+
+    if program == "all":
+        s = set(av_by_key)
+        active_sets.append(s)
+        sn, ind = split_set(s)
+        active_snps.append(sn)
+        active_indels.append(ind)
+    elif program == "singlevariant":
+        ss: List[Set[Tuple[int, str]]] = []
+        seen_sets: Set[frozenset] = set()
+        for h in range(nh):
+            if filtered[h]:
+                continue
+            act = {(p, av.str) for p, av in haps[h].indels.items()
+                   if _is_real_variant(av)}
+            fz = frozenset(act)
+            if fz not in seen_sets:
+                seen_sets.add(fz)
+                ss.append(act)
+        # std::set<std::set<PAV>> iterates in sorted order
+        ss.sort(key=lambda s: sorted(s))
+        for s in ss:
+            active_sets.append(s)
+            sn, ind = split_set(s)
+            active_snps.append(sn)
+            active_indels.append(ind)
+    elif program == "priorpersite":
+        active_sets.append(set())
+        active_snps.append([])
+        active_indels.append([])
+        for p in sorted(all_by_pos):
+            site = {(pp, av.str) for pp, av in all_by_pos[p]}
+            prev_n = len(active_sets)
+            for pna in range(prev_n):
+                s = set(active_sets[pna]) | site
+                active_sets.append(s)
+                sn, ind = split_set(s)
+                active_snps.append(sn)
+                active_indels.append(ind)
+    else:
+        raise ValueError("Unknown EM option")
+    return active_sets, active_snps, active_indels
+
+
+def _compat_for(haps, filtered, active_set):
+    """Haplotype-compatibility mask for one active set
+    (DInDel.cpp:2407-2429)."""
+    nh = len(haps)
+    compatible = [1] * nh
+    numah = 0
+    for h in range(nh):
+        if filtered[h]:
+            compatible[h] = 0
+        else:
+            for p, av in haps[h].indels.items():
+                if _is_real_variant(av) and (p, av.str) not in active_set:
+                    compatible[h] = 0
+                    break
+        if compatible[h]:
+            numah += 1
+    return compatible, numah
 
 
 def em_inputs(haps, reads, liks, params, filtered, program):
     """Per-window inputs for the batched device EM
-    (device_em.run_batched_em): (rlT (nr, nh) float array,
+    (infer/device_em.run_batched_em): (rlT (nr, nh) float array,
     compat (nav, nh) bool, numah (nav,)).  Same active-set enumeration
     as estimate_hap_freqs_bayes_em, so device results align 1:1 with
     its th loop."""
+    import numpy as np
+
+    from .arrays import LiksArrays
+
     A = LiksArrays(liks, haps, reads, params)
     rlT = A.ll.T
     all_variants, all_by_pos = _collect_variants(haps)
@@ -50,7 +180,7 @@ def em_inputs(haps, reads, liks, params, filtered, program):
 
 def estimate_hap_freqs_bayes_em(
         haps: List[Haplotype], reads: List[Read],
-        liks, cand_pos: int, left_pos: int,
+        liks: List[List[MLAlignment]], cand_pos: int, left_pos: int,
         right_pos: int, glf_data: Optional[OutputData], index: int,
         candidates: AlignedCandidates, params: Parameters,
         filtered: List[int],
@@ -59,10 +189,13 @@ def estimate_hap_freqs_bayes_em(
     """Returns (hap_freqs, posteriors, rows). posteriors: list of
     (variant, pos, prob, freq, nf, nr) — HapEstResult mirror.
 
-    em_results: optional device-EM output (device_em.run_batched_em) — a
-    list of (loglik, pi) per active set in th order; when given, the host
-    EM while-loop is skipped (the float32 production path; the host loop
-    stays the byte-parity anchor)."""
+    em_results: optional device-EM output (infer/device_em) — a list of
+    (loglik, pi) per active set in th order; when given, the host EM
+    while-loop is skipped (f32 TPU production path; the host loop stays
+    the byte-parity anchor)."""
+    import numpy as np
+    from .arrays import LiksArrays, add_logs_arr, seq_sum
+
     nh = len(haps)
     nr = len(reads)
     rows: List[dict] = []
@@ -107,7 +240,7 @@ def estimate_hap_freqs_bayes_em(
         compatible, numah = _compat_for(haps, filtered, active_sets[th])
 
         if em_results is not None:
-            # device EM (device_em.run_batched_em) already ran this set
+            # device EM (infer/device_em) already ran this set
             loglik, pi = em_results[th]
             pi = np.asarray(pi, np.float64)
             zsum = sum(math.exp(x) for x in pi)
@@ -296,9 +429,59 @@ def estimate_hap_freqs_bayes_em(
         posteriors.append((pav, p, math.exp(logp), freq, totnf, totnr))
 
     if params.output_pooled_likelihoods:
+        from ..out.debug_dumps import write_pooled_dumps
         write_pooled_dumps(params.file_name, params.tid, cand_pos, haps,
                            reads, liks, hap_freqs,
                            [(p, av) for p, av in all_variants],
                            hap_has_var, left_pos)
 
     return hap_freqs, posteriors, rows
+
+
+def estimate_hap_freqs_ml(haps: List[Haplotype], reads: List[Read],
+                          liks: List[List[MLAlignment]],
+                          params: Parameters) -> List[float]:
+    """Plain maximum-likelihood EM over haplotype frequencies
+    (DetInDel::estimateHaplotypeFrequencies, DInDel.cpp:3665-3762; unused
+    by the reference's production paths but part of its API surface)."""
+    nh = len(haps)
+    nr = len(reads)
+    pi = [math.log(1.0 / nh)] * nh
+    e_old = NEG
+    it = 0
+    while True:
+        nk = [0.0] * nh
+        z = [[0.0] * nh for _ in range(nr)]
+        for r in range(nr):
+            lognorm = NEG
+            for h in range(nh):
+                z[r][h] = pi[h] + liks[h][r].ll
+                lognorm = add_logs(lognorm, z[r][h])
+            for h in range(nh):
+                z[r][h] = math.exp(z[r][h] - lognorm)
+                nk[h] += z[r][h]
+        for h in range(nh):
+            pi[h] = math.log(nk[h] / nr) if nk[h] > 0 else -745.0
+        e_new = 0.0
+        for r in range(nr):
+            for h in range(nh):
+                e_new += z[r][h] * (pi[h] + liks[h][r].ll)
+        converged = abs(e_old - e_new) < params.em_tol or it > 25
+        e_old = e_new
+        it += 1
+        if converged:
+            break
+    return [math.exp(x) for x in pi]
+
+
+def _g(x: float) -> str:
+    return "%g" % x
+
+
+def _emit(glf_data: Optional[OutputData], row: dict) -> None:
+    if glf_data is None:
+        return
+    line = glf_data.line()
+    for k, v in row.items():
+        line.set(k, v)
+    glf_data.output(line)

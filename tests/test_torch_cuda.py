@@ -16,12 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from dindel_tpu.config import ObservationModelParameters, Parameters
-from dindel_tpu.engine.candidates import get_candidates
-from dindel_tpu.io.bam import BamReader
-from dindel_tpu.pipeline.windows import make_windows
-from dindel_tpu.sim import PlantedVariant, SimConfig, simulate
+from chip_smoke import EDGE_CASES, dp_mismatches, edge_inputs
+from dindel_tpu_torch.config import ObservationModelParameters, Parameters
 from dindel_tpu_torch.engine.batched import BatchedWindowEngine
+from dindel_tpu_torch.engine.candidates import get_candidates
 from dindel_tpu_torch.hmm.dp_ref import dp_bounds, dp_ref
 from dindel_tpu_torch.hmm.expand import expand_compact
 from dindel_tpu_torch.hmm.liks import LiksView
@@ -30,6 +28,9 @@ from dindel_tpu_torch.hmm.pack import (merge_compact, pack_pairs_compact,
                                        tables_to_device)
 from dindel_tpu_torch.hmm.slab import run_slab_decode, run_slab_stats
 from dindel_tpu_torch.infer.device_em import run_batched_em
+from dindel_tpu_torch.io.bam import BamReader
+from dindel_tpu_torch.pipeline.windows import make_windows
+from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
 
 pytestmark = pytest.mark.cuda
 torch.set_num_threads(1)
@@ -78,10 +79,42 @@ def test_kernel_matches_plain_on_card(cuda, dtype, exact_ties, max_del):
     assert pair_hmm_dp.launches == n0 + 1
     want = dp_ref(*args, exact_ties=exact_ties)
     L_act, MB, MN = dp_bounds(pk["read_len"], pk["b_mid"], pk["L_pad"])
+    assert got[2].dtype == got[3].dtype == torch.uint8
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])
     assert torch.equal(got[2][:MB], want[2][:MB])
     assert torch.equal(got[3][MN:L_act - 1], want[3][MN:L_act - 1])
+
+
+@pytest.mark.parametrize("case", [kw for _, kw in EDGE_CASES],
+                         ids=[name for name, _ in EDGE_CASES])
+@pytest.mark.parametrize("exact_ties", [True, False])
+def test_kernel_matches_plain_at_edge_shapes(cuda, case, exact_ties):
+    """S_half not a multiple of 32, odd and up to 1024; numT 2..15; B not
+    a multiple of the pairs per block; b_mid at 0 and at read_len-1; a
+    zero-length hap; float64 (chip_smoke.EDGE_CASES)."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    args, bounds = edge_inputs(device=cuda, **case)
+    got = pair_hmm_dp(*args, exact_ties=exact_ties, bounds=bounds)
+    want = dp_ref(*args, exact_ties=exact_ties, bounds=bounds)
+    torch.cuda.synchronize()
+    assert dp_mismatches(got, want, bounds) == []
+
+
+def test_kernel_rejects_what_it_cannot_take(cuda):
+    """S_half over 1024 and numT over 15 raise; no fallback to dp_ref."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    args, bounds = edge_inputs(device=cuda, B=2, H_pad=1023, L_pad=16,
+                               numT=7, dtype="float32", seed=1)
+    with pytest.raises(ValueError, match="S_half"):
+        pair_hmm_dp(*args, bounds=bounds)
+    args, bounds = edge_inputs(device=cuda, B=2, H_pad=30, L_pad=16,
+                               numT=7, dtype="float32", seed=1)
+    args[2] = 16
+    with pytest.raises(ValueError, match="numT"):
+        pair_hmm_dp(*args, bounds=bounds)
 
 
 @pytest.mark.parametrize("exact_ties", [True, False])

@@ -1,8 +1,9 @@
 """dindel_tpu_torch pair-HMM DP and finish vs the JAX package.
 
 The plain PyTorch DP (dindel_tpu_torch/hmm/dp_ref.py) is held to the
-Pallas kernel in interpret mode in float32 (both fold modes) and to the
-XLA DP in float64 with exact ties; the finish is held to
+Pallas kernel in interpret mode in float32 (both fold modes; its uint8
+backpointer codes to the Pallas kernel's int32 words, in value) and to
+the XLA DP in float64 with exact ties; the finish is held to
 ``dindel_tpu.hmm.batch._finish(bt_codes=True)``.  Every comparison is
 exact: no tolerance.  The CUDA kernel is held to the plain version on the
 card in tests/test_torch_cuda.py."""
@@ -71,7 +72,11 @@ def test_dp_ref_matches_pallas_interpret_f32(shape, exact_ties):
     L_act, MB, MN = _bounds(pk)
     assert np.array_equal(got[0], want[0])
     assert np.array_equal(got[1], want[1])
-    # only the rows the finish consumes are written by either kernel
+    # uint8 class codes here, int32 words (the TPU's tile type) there:
+    # equal in value; only the rows the finish consumes are written by
+    # either kernel
+    assert got[2].dtype == got[3].dtype == np.uint8
+    assert want[2].dtype == want[3].dtype == np.int32
     assert np.array_equal(got[2][:MB], want[2][:MB])
     assert np.array_equal(got[3][MN:L_act - 1], want[3][MN:L_act - 1])
 

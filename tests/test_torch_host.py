@@ -4,8 +4,9 @@ The port copies the JAX-free host code that sits in modules importing
 JAX (packing, call tables, host folds, the device-call filter and
 diploid caller, LiksStats, the guards); each copy is held byte-equal to
 its original on the sim windows of tests/test_device_call.py.  A
-subprocess with ``jax`` blocked runs the port's CLI end to end on the
-CPU: the GPU host has no JAX."""
+subprocess with ``jax`` and ``dindel_tpu`` blocked runs the port's CLI
+end to end on the CPU: the GPU host has no JAX, and the port carries
+its own copy of every host module it runs."""
 
 import io
 import subprocess
@@ -25,7 +26,8 @@ from dindel_tpu.engine.window import check_guards_and_on_hap as jax_guards
 from dindel_tpu.out.glf import make_glf_output
 from dindel_tpu.parallel.mesh import synth_windows as jax_synth
 from dindel_tpu_torch.engine.batched import BatchedWindowEngine
-from dindel_tpu_torch.engine.guards import check_guards_and_on_hap
+from dindel_tpu_torch.engine.reads import WindowError as PortWindowError
+from dindel_tpu_torch.engine.window import check_guards_and_on_hap
 from dindel_tpu_torch.hmm import pack
 from dindel_tpu_torch.hmm.liks import LiksStats
 from dindel_tpu_torch.infer import device_call as tdc
@@ -177,12 +179,14 @@ def test_liks_stats_and_guards_equal(staged):
                      "n_ind")
     nh, nr = tv.nh, tv.nr
     assert (check_guards_and_on_hap(tv, nh, nr) == jax_guards(jv, nh, nr))
-    for bad, exc in ((float("nan"), WindowError), (0.5, RuntimeError)):
+    # each package raises its own WindowError class
+    for bad, exc in ((float("nan"), (WindowError, PortWindowError)),
+                     (0.5, (RuntimeError, RuntimeError))):
         f2 = dict(fields, ll=fields["ll"].copy())
         f2["ll"][3] = bad
-        for guard, cls in ((check_guards_and_on_hap, LiksStats),
-                           (jax_guards, jbatch.LiksStats)):
-            with pytest.raises(exc):
+        for guard, cls, e in ((check_guards_and_on_hap, LiksStats, exc[1]),
+                              (jax_guards, jbatch.LiksStats, exc[0])):
+            with pytest.raises(e):
                 guard(cls(*args[:5], f2), nh, nr)
 
 
@@ -200,12 +204,14 @@ def test_synth_windows_equal():
 _NO_JAX = textwrap.dedent("""
     import glob
     import sys
-    sys.modules["jax"] = None  # every `import jax` now raises ImportError
+    # every `import jax` / `import dindel_tpu...` now raises ImportError
+    sys.modules["jax"] = None
+    sys.modules["dindel_tpu"] = None
     sys.path.insert(0, {repo!r})
     import dindel_tpu_torch
     from dindel_tpu_torch import cli
     from dindel_tpu_torch.engine.batched import BatchedWindowEngine
-    from dindel_tpu.sim import PlantedVariant, SimConfig, simulate
+    from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
 
     fa, bam = simulate("sim", [PlantedVariant(pos=500, var="-AC",
                                               genotype=1)],
@@ -231,8 +237,9 @@ _NO_JAX = textwrap.dedent("""
     # the pooled caller with its device EM, beside the diploid caller
     glf = indels("pooled", "--doPooled", "--doDiploid")
     assert "singlevariant" in glf and "dip.map" in glf, glf
-    assert sys.modules["jax"] is None
-    assert not [m for m in sys.modules if m.startswith(("jax.", "jaxlib"))]
+    assert sys.modules["jax"] is None and sys.modules["dindel_tpu"] is None
+    assert not [m for m in sys.modules
+                if m.startswith(("jax.", "jaxlib", "dindel_tpu."))]
     print("NO_JAX_OK")
 """)
 
