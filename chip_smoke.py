@@ -46,12 +46,33 @@ Phases, in order; any failure exits non-zero:
    memory); 24 windows on the card and on the CPU with the host EM: GLF
    bytes identical; the device EM against the host EM on the card,
    within the tolerance of tests/test_device_em.py (relative 2e-3,
-   absolute 1e-2).
+   absolute 1e-2);
+10. streaming: the first 120 windows through the CLI's default engine
+   (`indels --doDiploid --hmmBackend jax --device cuda`: one kernel
+   launch per scored window, float64, exact ties), with windows/s, stage
+   seconds (the per-window hmm split into pack, device and decode) and
+   kernel launches (at least one per scored window); its GLF byte-equal
+   to the batched engine's on the card in float64 with exact ties and
+   host folds; the kernel timed at the median window's shape beside its
+   plain version and its bound; 24 windows with `--hmmBackend pallas`
+   on the card and on the CPU: GLF identical; 24 windows with
+   `--faster` (host only) in six CLI processes at once: ok rows;
+11. dense: the same 120 windows with `--engine batched --hmmBackend
+   pallas --insertPrior --libFile <getCIGARindels' libraries file>`:
+   every slab on the dense route (slab counts per route), kernel
+   launches, windows/s, stage seconds; 24 windows on the card and on the
+   CPU: GLF identical;
+12. shards: the 120 windows split into two window files, through
+   pipeline.run_parallel.run_and_merge_diploid with two spawned workers
+   on the one card: the merged VCF equal to the single-process run's.
 
-The line before the last is the kernel table as JSON, with the kernel's
-launches on each path (device call, decode, pooled); the last line is
-{"ok": true, "device": {...}}.  Needs nothing but the repository, the
-CUDA toolkit and PyTorch; imports no JAX."""
+Every engine this process closes, and every shard worker's, must have
+rescued no slab (a rescue would hide a broken device path).  The line
+before the last is the kernel table as JSON, with the kernel's launches
+on each path (device call, decode, pooled, streaming float64 and
+float32, dense); the last line is {"ok": true, "device": {...}}.  Needs
+nothing but the repository, the CUDA toolkit and PyTorch; imports no
+JAX."""
 
 from __future__ import annotations
 
@@ -69,13 +90,15 @@ NH, NR, H, L = 8, 768, 160, 100        # bench.py:158 DP geometry
 ENGINE_SLAB_WINDOWS = 4                # 4 x 6144 = 24576 pairs
 N_VARIANTS, COVERAGE, READ_LEN = 360, 30, 100   # tools/bench_windows.py
 PARITY_WINDOWS = 24
-PATH_WINDOWS = 120                     # phases 7 and 9
+PATH_WINDOWS = 120                     # phases 7 and 9-12
+FASTER_PROCS = 6       # phase 10's --faster windows over six CLI processes
 SENTINEL_FLANK = 62    # phase 4's variant flanks start 58-60 bases in
 EM_RTOL, EM_ATOL = 2e-3, 1e-2          # tests/test_device_em.py:75
 # one H100 SXM at 700 W (NVIDIA's datasheet): HBM bytes/s and the
-# float32 rate outside the tensor cores
+# float32 and float64 rates outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+F64_OPS_PER_S = 34e12
 
 
 def log(*a):
@@ -216,7 +239,7 @@ def dp_bound(B, H_pad, L_pad, numT, bounds, itemsize=4):
     Operations: per state-step the two emission adds, the noins fold
     (numT candidates, two adds and a compare each at most) and the ins
     fold (two candidates): 3*numT + 5 float adds and compares, at the
-    card's float32 rate."""
+    card's float32 rate (float64 when itemsize is 8)."""
     L_act, MB, MN = bounds
     SP = H_pad + 2
     steps = MB + (L_act - 1 - MN)
@@ -225,7 +248,8 @@ def dp_bound(B, H_pad, L_pad, numT, bounds, itemsize=4):
                 + 2 * SP * itemsize)
     written = 2 * B * 2 * SP * itemsize + state_steps
     t_bytes = (read + written) / HBM_BYTES_PER_S * 1e3
-    t_ops = state_steps * (3 * numT + 5) / F32_OPS_PER_S * 1e3
+    rate = F64_OPS_PER_S if itemsize == 8 else F32_OPS_PER_S
+    t_ops = state_steps * (3 * numT + 5) / rate * 1e3
     if t_bytes >= t_ops:
         return t_bytes, "bytes", state_steps
     return t_ops, "operations", state_steps
@@ -514,10 +538,11 @@ def glf_rows_ok(glfs):
 
 
 def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
-                max_pairs=24576, flank=None, **attrs):
-    """One pass of the port's engine (the shipped configuration: float32,
-    fast ties); `attrs` are set on the Parameters (diploid by default),
-    `flank` is --flankRefSeq."""
+                max_pairs=24576, flank=None, f64=False, **attrs):
+    """One pass of the port's batched engine (the shipped configuration:
+    float32, fast ties; with `f64`, float64 and exact ties); `attrs` are
+    set on the Parameters (diploid by default), `flank` is
+    --flankRefSeq."""
     import numpy as np
     from dindel_tpu_torch.config import Parameters
     from dindel_tpu_torch.engine.batched import BatchedWindowEngine
@@ -530,7 +555,8 @@ def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
     if flank is not None:
         params.obs_params.pad_cover = flank
     eng = BatchedWindowEngine([bam], fa, params, device=device,
-                              exact_ties=False, dtype=np.float32,
+                              exact_ties=f64,
+                              dtype=np.float64 if f64 else np.float32,
                               device_folds=folds, device_em=em,
                               max_pairs_per_slab=max_pairs)
     t0 = time.perf_counter()
@@ -591,38 +617,70 @@ def window_subset(wins, n_windows, path: Path):
 
 
 class Spy:
-    """While active: counts the engine's slab programs per route
-    (run_slab_stats: device call, run_slab_decode: full decode) and its
-    device VB-EM dispatches, and keeps each engine's RunStats summary at
-    close.  Wraps the names the engine module calls; restores them on
-    exit."""
+    """While active: counts the batched engine's slab programs per route
+    (run_slab_stats: device call, run_slab_decode: full decode,
+    run_packed: dense) and its device VB-EM dispatches, and the streaming
+    engine's scored windows (BatchedPairHMM.compute, with each window's
+    pair count B, H_pad and L_pad in `shapes`, and the seconds of its
+    pack, device and decode steps in `split`); keeps each engine's
+    RunStats summary at close.  Wraps the names the engine modules call;
+    restores them on exit."""
 
-    NAMES = ("run_slab_stats", "run_slab_decode", "run_batched_em")
+    NAMES = ("run_slab_stats", "run_slab_decode", "run_packed",
+             "run_batched_em")
+    SPLIT = {"pack_pairs": "pack", "run_packed": "device",
+             "decode_liks_view": "decode"}
 
     def __enter__(self):
-        from dindel_tpu_torch.engine import batched
+        from dindel_tpu_torch.engine import batched, window
+        from dindel_tpu_torch.hmm import batch
 
-        self.mod = batched
         self.counts = dict.fromkeys(self.NAMES, 0)
-        self.saved = {n: getattr(batched, n) for n in self.NAMES}
-        for n, real in self.saved.items():
-            def wrapped(*a, _n=n, _real=real, **k):
+        self.counts["windows_scored"] = 0
+        self.shapes, self.windows = [], []
+        self.split = dict.fromkeys(self.SPLIT.values(), 0.0)
+        self.saved = [(batched, n, getattr(batched, n)) for n in self.NAMES]
+        self.saved += [(batch, n, getattr(batch, n)) for n in self.SPLIT]
+        self.saved += [(batch.BatchedPairHMM, "compute",
+                        batch.BatchedPairHMM.compute),
+                       (window.WindowEngine, "close",
+                        window.WindowEngine.close)]
+        for n in self.NAMES:
+            def wrapped(*a, _n=n, _real=getattr(batched, n), **k):
                 self.counts[_n] += 1
                 return _real(*a, **k)
             setattr(batched, n, wrapped)
-        self.summaries = []
-        self.close = batched.BatchedWindowEngine.close
+        for n, step in self.SPLIT.items():
+            def timed(*a, _step=step, _real=getattr(batch, n), **k):
+                t0 = time.perf_counter()
+                out = _real(*a, **k)
+                if _step == "device":  # the caller's fetch waits here
+                    out = [t.cpu() for t in out]
+                if _step == "pack":
+                    self.shapes.append((out["hap_len"].shape[0],
+                                        out["H_pad"], out["L_pad"]))
+                self.split[_step] += time.perf_counter() - t0
+                return out
+            setattr(batch, n, timed)
+        compute = batch.BatchedPairHMM.compute
 
-        def close(eng):
+        def scored(hmm, *a, **k):
+            self.counts["windows_scored"] += 1
+            self.windows.append((hmm.params, *a))
+            return compute(hmm, *a, **k)
+        batch.BatchedPairHMM.compute = scored
+        self.summaries = []
+        close = window.WindowEngine.close
+
+        def closed(eng):
             self.summaries.append(eng.stats.summary())
-            return self.close(eng)
-        batched.BatchedWindowEngine.close = close
+            return close(eng)
+        window.WindowEngine.close = closed
         return self
 
     def __exit__(self, *exc):
-        for n, real in self.saved.items():
-            setattr(self.mod, n, real)
-        self.mod.BatchedWindowEngine.close = self.close
+        for owner, n, real in self.saved:
+            setattr(owner, n, real)
         return False
 
     def stage_seconds(self):
@@ -678,15 +736,39 @@ def parity_phase(d: Path, fa, bam, wins, device, n_windows):
         raise SystemExit("parity phase failed: card and CPU GLF differ")
 
 
-def indels_cli(fa, bam, win_file, out, device, *extra):
-    """One `indels --engine batched --hmmBackend pallas` CLI run; returns
-    its seconds."""
+BATCHED_PALLAS = ("--engine", "batched", "--hmmBackend", "pallas")
+
+
+def indels_cli(fa, bam, win_file, out, device, *extra,
+               engine=BATCHED_PALLAS):
+    """One `indels` CLI run (by default `--engine batched --hmmBackend
+    pallas`); returns its seconds."""
     t0 = time.perf_counter()
-    run_cli("--analysis", "indels", "--engine", "batched", "--hmmBackend",
-            "pallas", "--device", device, "--bamFile", bam, "--ref", fa,
-            "--varFile", win_file, "--outputFile", out, *extra)
+    run_cli("--analysis", "indels", *engine, "--device", device,
+            "--bamFile", bam, "--ref", fa, "--varFile", win_file,
+            "--outputFile", out, *extra)
     sync(device)
     return time.perf_counter() - t0
+
+
+def guard_rescues():
+    """From here on, an engine of this process that closes with a
+    rescued slab fails the run: a rescue would hide a broken device
+    path.  Returns the list of closed engines' rescue counts."""
+    from dindel_tpu_torch.engine import window
+
+    closed = []
+    close = window.WindowEngine.close
+
+    def checked(eng):
+        close(eng)
+        n = eng.stats.stage_seconds.get("slab_rescues", 0)
+        closed.append(n)
+        if n:
+            raise SystemExit(f"an engine rescued {n} slabs: its device "
+                             "path failed")
+    window.WindowEngine.close = checked
+    return closed
 
 
 def decode_phase(d: Path, fa, bam, wins, device):
@@ -837,6 +919,229 @@ def pooled_phase(d: Path, fa, bam, wins, device):
     return launches
 
 
+def streaming_kernel(windows, device):
+    """K1 at the shape of the median scored window (by pairs) of a
+    streaming run, float64 exact and float32 fast: checked against its
+    plain version, timed (CUDA events, 50 chained launches) beside the
+    plain version and its bound.  Returns {fold: row}."""
+    import numpy as np
+    import torch
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+    from dindel_tpu_torch.hmm.dp_ref import dp_bounds, dp_ref
+    from dindel_tpu_torch.hmm.pack import pack_pairs
+
+    def pairs(w):
+        return len(w[1]) * len(w[2])
+    params, haps, reads, hs = sorted(windows, key=pairs)[len(windows) // 2]
+    out = {}
+    for fold, dtype, exact in (("f64 exact", np.float64, True),
+                               ("f32 fast", np.float32, False)):
+        pk = pack_pairs(haps, reads, hs, params, dtype)
+
+        def up(k, dt=None):
+            t = torch.from_numpy(np.ascontiguousarray(pk[k]))
+            return t.to(device=device, dtype=dt or t.dtype)
+        args = [pk["H_pad"], pk["L_pad"], pk["numT"],
+                up("hap_len", torch.int32), up("read_len", torch.int32),
+                up("b_mid", torch.int32), up("read_codes", torch.uint8),
+                up("hap_codes", torch.uint8), up("eq"), up("uq"), up("lpe"),
+                up("lpn"), pk["scalars"]]
+        bounds = dp_bounds(pk["read_len"], pk["b_mid"], pk["L_pad"])
+        k = pair_hmm_dp(*args, exact_ties=exact, bounds=bounds)
+        r = dp_ref(*args, exact_ties=exact, bounds=bounds)
+        sync(device)
+        bad = dp_mismatches(k, r, bounds)
+        err = max((k[0] - r[0]).abs().max().item(),
+                  (k[1] - r[1]).abs().max().item())
+        if bad or err != 0.0:
+            raise SystemExit(f"kernel disagrees with its plain version at "
+                             f"the streaming window ({fold}): {bad}")
+        ms = time_ms(lambda: pair_hmm_dp(*args, exact_ties=exact,
+                                         bounds=bounds), 50, device)
+        plain_ms = time_ms(lambda: dp_ref(*args, exact_ties=exact,
+                                          bounds=bounds), 3, device)
+        B = pk["hap_len"].shape[0]
+        bound_ms, bound_by, steps = dp_bound(B, pk["H_pad"], pk["L_pad"],
+                                             pk["numT"], bounds,
+                                             np.dtype(dtype).itemsize)
+        out[fold] = dict(B=B, H_pad=pk["H_pad"], L_pad=pk["L_pad"],
+                         bounds=bounds, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         max_abs_err=err)
+        log(f"[streaming-kernel] median window B={B} H_pad={pk['H_pad']} "
+            f"L_pad={pk['L_pad']} (L_act, MB, MN)={bounds} {fold}: kernel "
+            f"{ms!r} ms per launch, plain {plain_ms!r} ms, bound "
+            f"{bound_ms!r} ms ({bound_by}, {steps} state-steps), share of "
+            f"the bound {bound_ms / ms:.4f}; bit-equal to plain")
+    return out
+
+
+def streaming_phase(d: Path, fa, bam, wins, device):
+    """Phase 10: the CLI's default engine (streaming)."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    d.mkdir()
+    sub, n = window_subset(wins, PATH_WINDOWS, d / "win.txt")
+    pair_hmm_dp.launches = 0
+    with Spy() as spy:
+        wall = indels_cli(fa, bam, sub, d / "stream", device, "--doDiploid",
+                          "--hmmBackend", "jax", engine=())
+    launches = pair_hmm_dp.launches
+    scored = spy.counts["windows_scored"]
+    n_ok, no_nan = glf_rows_ok([d / "stream.glf.txt"])
+    split = {k: round(v, 3) for k, v in spy.split.items()}
+    log(f"[streaming] CLI default engine, --hmmBackend jax (float64, exact "
+        f"ties), {n} windows: windows_ok {spy.windows_ok()} in {wall:.3f} "
+        f"s = {spy.windows_ok() / wall:.6g} windows/s; stage seconds "
+        f"{spy.stage_seconds()}; window_hmm split {split}; windows scored "
+        f"{scored}; kernel launches {launches}; ok GLF rows {n_ok}; no NaN "
+        f"{no_nan}")
+    if scored <= 0 or launches < scored or n_ok <= 0 or not no_nan:
+        raise SystemExit("streaming phase failed: launches/rows")
+    wall_b, st = engine_pass(fa, bam, [sub], d / "batched64.glf.txt", device,
+                             folds=False, f64=True)
+    same = ((d / "batched64.glf.txt").read_bytes()
+            == (d / "stream.glf.txt").read_bytes())
+    log(f"[streaming] the batched engine on {device}, float64 exact ties, "
+        f"host folds: {st['windows_ok']} windows ok in {wall_b:.3f} s; GLF "
+        f"byte-identical to the streaming engine's {same}")
+    if not same:
+        raise SystemExit("streaming phase failed: streaming and batched "
+                         "float64 GLF differ")
+    kernel = streaming_kernel(spy.windows, device)
+
+    psub, pn = window_subset(wins, PARITY_WINDOWS, d / "parity_win.txt")
+    glfs = []
+    for dev in (device, "cpu"):
+        pair_hmm_dp.launches = 0
+        with Spy() as spy:
+            wall = indels_cli(fa, bam, psub, d / f"pallas_{dev}", dev,
+                              "--doDiploid", "--hmmBackend", "pallas",
+                              engine=())
+        if dev == device:
+            f32_launches = pair_hmm_dp.launches
+            f32_scored = spy.counts["windows_scored"]
+        glfs.append((d / f"pallas_{dev}.glf.txt").read_bytes())
+        log(f"[streaming-pallas] {dev}: {spy.windows_ok()} windows ok in "
+            f"{wall:.3f} s; windows scored {spy.counts['windows_scored']}")
+    log(f"[streaming-pallas] {pn} windows, --hmmBackend pallas (float32, "
+        f"fast ties): kernel launches {f32_launches}; GLF {len(glfs[0])} "
+        f"bytes identical card vs CPU {glfs[0] == glfs[1]}")
+    if glfs[0] != glfs[1] or f32_launches < f32_scored or f32_scored <= 0:
+        raise SystemExit("streaming phase failed: pallas card vs CPU")
+    faster_windows(d, fa, bam, psub, device)
+    return launches, f32_launches, kernel
+
+
+def faster_windows(d: Path, fa, bam, win_file, device):
+    """--faster (the sparse HMM, host only) over the lines of `win_file`,
+    split over FASTER_PROCS CLI processes run at once."""
+    lines = [x for x in open(win_file).read().splitlines() if x.strip()]
+    per = -(-len(lines) // FASTER_PROCS)
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    try:
+        for i in range(0, len(lines), per):
+            wf = d / f"faster_win{i // per}.txt"
+            wf.write_text("\n".join(lines[i:i + per]) + "\n")
+            out = d / f"faster{i // per}"
+            outs.append(Path(str(out) + ".glf.txt"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "dindel_tpu_torch", "--analysis",
+                 "indels", "--doDiploid", "--faster", "--device", device,
+                 "--bamFile", str(bam),
+                 "--ref", str(fa), "--varFile", str(wf), "--outputFile",
+                 str(out)], cwd=REPO, stdout=subprocess.DEVNULL,
+                stderr=subprocess.PIPE, text=True))
+        errs = [p.communicate(timeout=900)[1] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    n_ok, no_nan = glf_rows_ok(outs)
+    log(f"[faster] CLI --faster, {len(lines)} windows in {len(procs)} "
+        f"processes at once: {wall:.3f} s wall; exit codes {rcs}; ok GLF "
+        f"rows {n_ok}; no NaN {no_nan}")
+    if any(rcs) or n_ok <= 0 or not no_nan:
+        raise SystemExit("faster run failed: " + " | ".join(
+            e[-2000:] for e in errs if e))
+
+
+def dense_phase(d: Path, fa, bam, wins, lib_file, device):
+    """Phase 11: the batched engine's dense insert-prior route."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    d.mkdir()
+    sub, n = window_subset(wins, PATH_WINDOWS, d / "win.txt")
+    extra = ("--doDiploid", "--insertPrior", "--libFile", str(lib_file))
+    pair_hmm_dp.launches = 0
+    with Spy() as spy:
+        wall = indels_cli(fa, bam, sub, d / "out", device, *extra)
+    launches = pair_hmm_dp.launches
+    routes = spy.counts
+    n_ok, no_nan = glf_rows_ok([d / "out.glf.txt"])
+    log(f"[dense] CLI --insertPrior --libFile, {n} windows: windows_ok "
+        f"{spy.windows_ok()} in {wall:.3f} s = {spy.windows_ok() / wall:.6g}"
+        f" windows/s; stage seconds {spy.stage_seconds()}; slabs: dense "
+        f"{routes['run_packed']}, decode {routes['run_slab_decode']}, "
+        f"device call {routes['run_slab_stats']}; kernel launches "
+        f"{launches}; ok GLF rows {n_ok}; no NaN {no_nan}")
+    if (routes["run_packed"] <= 0 or routes["run_slab_decode"]
+            or routes["run_slab_stats"] or launches <= 0 or n_ok <= 0
+            or not no_nan):
+        raise SystemExit("dense phase failed: routes/launches/rows")
+    psub, pn = window_subset(wins, PARITY_WINDOWS, d / "parity_win.txt")
+    glfs = []
+    for dev in (device, "cpu"):
+        wall = indels_cli(fa, bam, psub, d / f"parity_{dev}", dev, *extra)
+        glfs.append((d / f"parity_{dev}.glf.txt").read_bytes())
+        log(f"[dense-parity] {dev}: {pn} windows in {wall:.3f} s")
+    log(f"[dense-parity] GLF {len(glfs[0])} bytes identical card vs CPU "
+        f"{glfs[0] == glfs[1]}")
+    if glfs[0] != glfs[1]:
+        raise SystemExit("dense phase failed: card and CPU GLF differ")
+    return launches
+
+
+def shards_phase(d: Path, fa, bam, wins, device):
+    """Phase 12: the window-file shard driver, two workers on one card,
+    against one process over the unsplit windows."""
+    from dindel_tpu_torch.config import Parameters
+    from dindel_tpu_torch.pipeline.run_parallel import run_and_merge_diploid
+
+    d.mkdir()
+    sub, n = window_subset(wins, PATH_WINDOWS, d / "all.txt")
+    lines = open(sub).read().splitlines()
+    half = (len(lines) + 1) // 2
+    shards = [d / "shard0.txt", d / "shard1.txt"]
+    for f, part in zip(shards, (lines[:half], lines[half:])):
+        f.write_text("\n".join(part) + "\n")
+    runs = {}
+    for tag, files, workers in (("two", shards, 2), ("one", [sub], 1)):
+        t0 = time.perf_counter()
+        _, stats = run_and_merge_diploid(
+            [str(f) for f in files], [bam], fa, Parameters(),
+            str(d / tag), str(d / f"{tag}.vcf"), num_workers=workers,
+            backend="pallas", device=device)
+        wall = time.perf_counter() - t0
+        rescues = sum(st["stage_seconds"].get("slab_rescues", 0)
+                      for st in stats)
+        runs[tag] = (d / f"{tag}.vcf").read_text()
+        log(f"[shards] {tag}: {len(files)} window files, {workers} "
+            f"worker(s): windows_ok {sum(st['windows_ok'] for st in stats)}"
+            f" in {wall:.3f} s; slab rescues {rescues}")
+        if rescues:
+            raise SystemExit("shards phase failed: a worker rescued slabs")
+    recs = [x for x in runs["two"].splitlines() if not x.startswith("#")]
+    log(f"[shards] merged VCF: {len(recs)} records, identical to the "
+        f"single-process run's {runs['two'] == runs['one']}")
+    if runs["two"] != runs["one"] or not recs:
+        raise SystemExit("shards phase failed: merged VCFs differ")
+
+
 def golden_phase(d: Path, device):
     from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
 
@@ -911,6 +1216,7 @@ def main() -> int:
                 f"issue bound, {t_alu / r['ms']:.4f} of the ALU bound")
     torch.cuda.empty_cache()
 
+    closed = guard_rescues()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
         (tmp / "slice").mkdir()
@@ -923,6 +1229,14 @@ def main() -> int:
         by_path["decode"] = decode_phase(tmp / "decode", fa, bam, wins, dev)
         sentinel_phase(tmp / "sentinel", fa, bam, wins, dev)
         by_path["pooled"] = pooled_phase(tmp / "pooled", fa, bam, wins, dev)
+        (by_path["streaming_f64"], by_path["streaming_f32"],
+         at_window) = streaming_phase(tmp / "streaming", fa, bam, wins, dev)
+        by_path["dense"] = dense_phase(tmp / "dense", fa, bam, wins,
+                                       tmp / "slice" / "cand.libraries.txt",
+                                       dev)
+        shards_phase(tmp / "shards", fa, bam, wins, dev)
+    log(f"[rescues] {len(closed)} engines closed in this process, slab "
+        f"rescues {sum(closed)}")
 
     fast = slab["fast"]
     log(f"[kernel] bench-geometry fast fold: {bench['fast']['ms']!r} ms, "
@@ -934,13 +1248,18 @@ def main() -> int:
         "replaces": "dindel_tpu/hmm/pallas_kernel.py:107",
         "launches": launches,
         "launches_by_path": by_path,
-        "max_abs_err": max(v["max_abs_err"] for r in (bench, slab)
+        "max_abs_err": max(v["max_abs_err"]
+                           for r in (bench, slab, at_window)
                            for v in r.values()),
         "ms": fast["ms"],
         "plain_ms": fast["plain_ms"],
         "bound_ms": fast["bound_ms"],
         "bound_by": fast["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this DP
+        "at_streaming_window": {
+            fold: {k: r[k] for k in ("B", "H_pad", "L_pad", "ms",
+                                     "plain_ms", "bound_ms", "bound_by")}
+            for fold, r in at_window.items()},
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

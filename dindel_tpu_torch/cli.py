@@ -5,16 +5,23 @@ DInDel.cpp:4074-4308, and the pipeline scripts' verbs) plus ``--device``
 (default ``cuda``).  Every verb runs through this package's modules:
 getCIGARindels, realignCandidates, makeWindows, selectCandidates,
 mergeOutputDiploid, convertVCFToDindel, makeGenotypeLikelihoodFilePooled
-and mergeOutputPooled are host code; ``--analysis indels`` runs this
-package's batched engine.
+and mergeOutputPooled are host code; ``--analysis indels`` runs one of
+this package's engines, as ``python -m dindel_tpu`` does:
 
-``indels --engine batched`` supports ``--doDiploid`` and ``--doPooled``
-(alone or together), ``--outputRealignedBAM`` and ``--opl``.
-``--hmmBackend pallas`` selects the fast tie fold with the argmax finish
-(the shipped configuration), the default ``--hmmBackend jax`` (and
-``oracle``) the exact EPS/TIE fold with the exact sequential finish;
-both run the same CUDA DP kernel.  Options this package does not have
-yet raise NotImplementedError naming their ROADMAP item."""
+- the default ``--engine streaming`` (and any run with ``--faster``)
+  is the per-window engine: ``--hmmBackend jax`` (the default) scores
+  each window in float64 with the exact EPS/TIE fold, ``pallas`` in
+  float32 with the fast fold and the argmax finish, both through the
+  CUDA DP kernel; ``oracle`` runs the float64 NumPy reference on the
+  host; ``--faster`` the sparse k-mer-seeded HMM on the host;
+- ``--engine batched`` batches many windows per slab program in
+  float32: ``--hmmBackend pallas`` selects the fast fold (the shipped
+  configuration), ``jax`` and ``oracle`` the exact fold.
+
+Both take ``--doDiploid`` and ``--doPooled`` (alone or together),
+``--outputRealignedBAM``, ``--opl``, ``--insertPrior`` and ``--libFile``.
+``--mesh`` and ``--stageProcs`` raise NotImplementedError naming their
+ROADMAP item."""
 
 from __future__ import annotations
 
@@ -126,8 +133,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--engine", default="streaming",
                     choices=["streaming", "batched"],
                     help="indels engine: 'batched' pipelines many windows "
-                         "per device dispatch (TPU production path); "
-                         "'streaming' is the per-window reference path")
+                         "per device slab program; 'streaming' is the "
+                         "per-window reference path")
     ap.add_argument("--batchWindows", type=int, default=128,
                     help="windows staged per flush (batched engine)")
     ap.add_argument("--maxPairsPerSlab", type=int, default=24576,
@@ -149,8 +156,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "as in the reference, DInDel.cpp:1365)")
     ap.add_argument("--hmmBackend", default="jax",
                     choices=["jax", "pallas", "oracle"],
-                    help="pair-HMM backend: jax (batched XLA kernel), "
-                         "pallas (fused TPU kernel), oracle (float64 NumPy)")
+                    help="pair-HMM backend: jax (the DP kernel in float64, "
+                         "exact ties), pallas (float32, fast ties), oracle "
+                         "(float64 NumPy on the host; the batched engine "
+                         "takes it as jax's exact ties)")
     # pipeline subcommand options
     ap.add_argument("--inputVarFile")
     ap.add_argument("--windowFilePrefix")
@@ -166,8 +175,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--numSamples", type=int, default=0)
     ap.add_argument("--numBAMFiles", type=int, default=0)
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the slab program, e.g. cuda, "
-                         "cuda:1 or cpu (cpu runs the plain PyTorch "
+                    help="torch device of the engine's device work, e.g. "
+                         "cuda, cuda:1 or cpu (cpu runs the plain PyTorch "
                          "versions of the kernels)")
     return ap
 
@@ -239,11 +248,6 @@ def params_from_args(args) -> Parameters:
 
 def _unsupported(args) -> None:
     todo = [
-        (args.engine != "batched",
-         "--engine streaming (the per-window engine): ROADMAP Queue 1 "
-         "item 9"),
-        (args.faster,
-         "--faster (the streaming sparse HMM): ROADMAP Queue 1 item 9"),
         (bool(args.mesh), "--mesh (multi-GPU): ROADMAP Queue 1 item 11"),
         (args.stageProcs > 0,
          "--stageProcs (multi-process host staging): ROADMAP Queue 1 "
@@ -256,10 +260,6 @@ def _unsupported(args) -> None:
 
 
 def _indels(args) -> int:
-    import numpy as np
-
-    from .engine.batched import BatchedWindowEngine
-
     _unsupported(args)
     params = params_from_args(args)
     bam_paths = ([args.bamFile] if args.bamFile
@@ -268,11 +268,22 @@ def _indels(args) -> int:
     if args.libFile:
         params.map_unmapped_reads = True
         libraries.add_from_file(args.libFile)
-    eng = BatchedWindowEngine(
-        bam_paths, args.ref, params, libraries, device=args.device,
-        batch_windows=args.batchWindows,
-        max_pairs_per_slab=args.maxPairsPerSlab,
-        exact_ties=args.hmmBackend != "pallas", dtype=np.float32)
+    # the batched engine pipelines host staging with device slabs; the
+    # streaming engine is the per-window reference path (and the --faster
+    # sparse-HMM path), dindel_tpu/cli.py:254-289
+    if args.engine == "batched" and params.slower:
+        import numpy as np
+
+        from .engine.batched import BatchedWindowEngine
+        eng = BatchedWindowEngine(
+            bam_paths, args.ref, params, libraries, device=args.device,
+            batch_windows=args.batchWindows,
+            max_pairs_per_slab=args.maxPairsPerSlab,
+            exact_ties=args.hmmBackend != "pallas", dtype=np.float32)
+    else:
+        from .engine.window import WindowEngine
+        eng = WindowEngine(bam_paths, args.ref, params, libraries,
+                           hmm_backend=args.hmmBackend, device=args.device)
     try:
         eng.detect_indels(args.varFile)
     finally:

@@ -14,30 +14,40 @@ Counterpart of ``dindel_tpu.engine.batched.BatchedWindowEngine``
      - full decode: expand, the DP kernel, finish; map_state comes back
        and is decoded per pair on the host (hmm/liks.py LiksView).  It
        serves --outputRealignedBAM and --opl (the whole run) and slabs
-       whose variant flanks reach the LO/RO sentinel codes;
+       whose variant flanks reach the LO/RO sentinel codes.  A slab
+       that needs the insert-size positional prior (--insertPrior, or
+       --libFile with mapped mates) is packed dense (hmm/pack.py
+       pack_pairs) and runs the DP kernel and finish on its per-pair
+       arrays (slab.run_packed), then decodes the same way;
   3. host (one finish worker, so GLF rows stay in window order): fetch
      each slab's planes, run the pooled caller's VB-EM for the batch's
      device-call windows in one device dispatch (infer/device_em.py),
      then filter, pooled and diploid calling, GLF rows and realigned
      BAMs per window.
 
-Not ported (NotImplementedError naming the ROADMAP item): the dense
-insert-prior path, the streaming engine and --faster, mesh sharding and
-multi-process staging.  There is no slab rescue: a failing slab
-raises."""
+A slab whose device phase raises is re-scored window by window through
+the per-window backend (float64, exact ties, the DP kernel on this
+engine's device: WindowEngine.compute_likelihoods); every rescue is
+counted in stats.stage_seconds["slab_rescues"] and its first cause is
+printed to stderr.  --faster runs the streaming engine (the CLI routes
+it there) and raises ValueError here.  Mesh sharding (ROADMAP Queue 1
+item 11) and multi-process staging (item 12) are not ported; the CLI
+refuses --mesh and --stageProcs."""
 
 from __future__ import annotations
 
 import copy
+import sys
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
-import torch
 
 from ..hmm.liks import LiksStats, decode_liks_view
-from ..hmm.pack import _round_up, merge_compact, pack_pairs_compact, pad_compact
-from ..hmm.slab import run_slab_decode, run_slab_stats
+from ..hmm.pack import (_round_up, merge_compact, pack_pairs,
+                        pack_pairs_compact, pad_compact)
+from ..hmm.slab import run_packed, run_slab_decode, run_slab_stats
 from ..infer.device_call import (build_call_tables, diploid_glf_dev,
                                  filter_haplotypes_dev, host_window_folds,
                                  pair_enum)
@@ -51,15 +61,10 @@ from .reads import ReadBuffer, WindowError, get_reads
 from .window import WindowEngine, check_guards_and_on_hap
 
 
-def resolve_device(device) -> torch.device:
-    """An explicit torch device; a CUDA device must exist."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but CUDA is not "
-                           "available")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+# the dense pk arrays a slab's run_packed consumes (the JAX package's
+# lpeV/lpnV serve only its XLA DP and stay out of the merge)
+_DENSE_KEYS = ("hap_len", "read_len", "b_mid", "read_codes", "hap_codes",
+               "eq", "uq", "lpe", "lpn", "prior_rmq", "prior_hmq")
 
 
 class BatchedWindowEngine(WindowEngine):
@@ -82,14 +87,13 @@ class BatchedWindowEngine(WindowEngine):
                  dtype=np.float32, device_folds: Optional[bool] = None,
                  device_em: Optional[bool] = None):
         if not params.slower:
-            raise NotImplementedError(
-                "--faster runs the streaming engine, not ported yet: "
-                "ROADMAP Queue 1 item 9 (per-window backends)")
-        self.device = resolve_device(device)
-        # hmm_backend "torch" makes WindowEngine build no JAX per-window
-        # backend; this engine scores every window through its slabs
+            raise ValueError(
+                "the batched engine has no --faster path: --faster runs "
+                "the streaming engine (WindowEngine), as the CLI routes it")
+        # the per-window backend of the slab rescue: float64, exact ties,
+        # the DP kernel on this engine's device (JAX batched.py:98-103)
         super().__init__(bam_paths, fasta_path, params, libraries,
-                         hmm_backend="torch")
+                         hmm_backend="jax", device=device)
         self.batch_windows = batch_windows
         self.max_pairs_per_slab = max_pairs_per_slab
         self.exact_ties = exact_ties
@@ -100,10 +104,7 @@ class BatchedWindowEngine(WindowEngine):
                              if device_folds is None else device_folds)
         self.device_em = (self.np_dtype == np.float32
                           if device_em is None else device_em)
-
-    def compute_likelihoods(self, haps, reads, left_pos):
-        raise NotImplementedError(
-            "per-window likelihoods are not ported: ROADMAP Queue 1 item 9")
+        self._rescue_reported = False
 
     # ------------------------------------------------------------------
     def detect_indels(self, var_file: str, glf_path: Optional[str] = None):
@@ -214,11 +215,15 @@ class BatchedWindowEngine(WindowEngine):
             slab_pairs += n
         if slab:
             slabs.append(slab)
-        items = []
+        items, rescued = [], {}
         with self.stats.stage("device_hmm"):
             for slab in slabs:
-                items.append(self._stage_slab(slab))
-        return dict(staged=staged, items=items, params=copy.copy(self.params))
+                try:
+                    items.append(self._stage_slab(slab))
+                except Exception:
+                    rescued.update(self._rescue_slab(slab))
+        return dict(staged=staged, items=items, rescued=rescued,
+                    params=copy.copy(self.params))
 
     def _want_device_call(self) -> bool:
         """Realigned BAMs and --opl dumps need per-pair MLAlignments: the
@@ -239,12 +244,21 @@ class BatchedWindowEngine(WindowEngine):
                                       p.obs_params, self.np_dtype,
                                       H_pad=H_pad, L_pad=L_pad)
                    for e in slab]
-            if any(pk is None for pk in pks):
-                raise NotImplementedError(
-                    "the insert-size positional prior needs the dense "
-                    "per-pair packing (pack_pairs), not ported yet: "
-                    "ROADMAP Queue 1 item 8")
-            use_dev = self._want_device_call()
+            dense = any(pk is None for pk in pks)
+            if dense:
+                # the insert-size positional prior needs per-pair tables:
+                # the whole slab ships dense and takes the full-decode
+                # route (JAX batched.py:395-401, 432-447)
+                pks = [pack_pairs(e["haps"], e["reads"], e["left_pos"],
+                                  p.obs_params, self.np_dtype, H_pad=H_pad,
+                                  L_pad=L_pad) for e in slab]
+                merged = {k: np.concatenate([pk[k] for pk in pks])
+                          for k in _DENSE_KEYS}
+                merged.update(H_pad=H_pad, L_pad=L_pad, numT=pks[0]["numT"],
+                              scalars=pks[0]["scalars"])
+            else:
+                merged = pad_compact(merge_compact(pks))
+            use_dev = not dense and self._want_device_call()
             if use_dev:
                 for e in slab:
                     e["ctab"] = build_call_tables(
@@ -257,10 +271,12 @@ class BatchedWindowEngine(WindowEngine):
                 use_dev = not any(
                     (e["ctab"]["v_valid"] & (e["ctab"]["v_left"] <= -3)).any()
                     for e in slab)
-            merged = pad_compact(merge_compact(pks))
             if use_dev:
                 vtab, callmeta, kmap_of = self._call_meta(slab, merged)
         with self.stats.stage("slab_dispatch"):
+            if dense:
+                return ("decode", slab, pks, None,
+                        run_packed(merged, self.exact_ties, self.device))
             if not use_dev:
                 return ("decode", slab, pks, None,
                         run_slab_decode(merged, self.exact_ties, self.device))
@@ -331,10 +347,13 @@ class BatchedWindowEngine(WindowEngine):
         device EM, then call each window and write its GLF rows in
         window order."""
         p = batch["params"]
-        liks_by_idx = {}
+        liks_by_idx = dict(batch["rescued"])
         with self.stats.stage("device_hmm"):
             for item in batch["items"]:
-                self._finish_slab(item, liks_by_idx, p)
+                try:
+                    self._finish_slab(item, liks_by_idx, p)
+                except Exception:
+                    liks_by_idx.update(self._rescue_slab(item[1]))
         if p.estimate_hap_freqs and self.device_em:
             self._batch_em(batch["staged"], liks_by_idx, p)
         rows: List[dict] = []
@@ -422,15 +441,45 @@ class BatchedWindowEngine(WindowEngine):
                 B = pk["hap_len"].shape[0]
                 sl = slice(off, off + B)
                 # dense per-pair code view for the decode (host gather)
-                dense = dict(H_pad=pk["H_pad"], L_pad=pk["L_pad"],
-                             hap_len=pk["hap_len"], read_len=pk["read_len"],
-                             hap_codes=pk["hap_codes_h"][pk["hap_idx"]],
-                             read_codes=pk["read_codes_r"][pk["read_idx"]])
+                dense = pk if not pk.get("compact") else dict(
+                    H_pad=pk["H_pad"], L_pad=pk["L_pad"],
+                    hap_len=pk["hap_len"], read_len=pk["read_len"],
+                    hap_codes=pk["hap_codes_h"][pk["hap_idx"]],
+                    read_codes=pk["read_codes_r"][pk["read_idx"]])
                 liks_by_idx[e["index"]] = (decode_liks_view(
                     e["haps"], e["reads"], dense, ll[sl], off_hap[sl],
                     off_hap_hmq[sl], ll_off[sl], ll_on[sl], map_state[sl],
                     params.obs_params), None)
                 off += B
+
+    def _rescue_slab(self, slab: List[dict]) -> dict:
+        """Slab-level fault isolation (JAX batched.py:672-702), called
+        where a slab's staging, dispatch or fetch raised: each window of
+        the slab is re-scored through the per-window backend (float64,
+        exact ties, the DP kernel on this engine's device), so one
+        pathological window cannot take down its slab-mates.  A window's
+        WindowError becomes its error row; anything else raised here (a
+        sticky CUDA error among them) ends the run.  Returns {window
+        index: (LiksView, None)}: rescued windows take the host
+        callers."""
+        with self.stats.lock:
+            self.stats.stage_seconds["slab_rescues"] = (
+                self.stats.stage_seconds.get("slab_rescues", 0.0) + 1)
+        if not self._rescue_reported:
+            self._rescue_reported = True
+            print("WARNING: slab device phase failed; per-window rescue "
+                  "engaged. First cause:", file=sys.stderr)
+            traceback.print_exc(file=sys.stderr)
+        out = {}
+        for e in slab:
+            try:
+                liks, _on_hap = self.compute_likelihoods(
+                    e["haps"], e["reads"], e["left_pos"])
+                out[e["index"]] = (liks, None)
+            except WindowError as err:
+                e["error"] = "error_" + str(err).replace(" ", "_")
+                self.stats.record_error(e["error"])
+        return out
 
     def _batch_em(self, staged: List[dict], liks_by_idx: dict, p) -> None:
         """Pooled VB-EM of every device-call window of the batch in one

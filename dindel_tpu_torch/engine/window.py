@@ -6,9 +6,10 @@ empiricalDistributionMethod (:380-640), getHaplotypes (:1526-1645),
 alignHaplotypes (:1427-1524) and computeLikelihoods (:1707-1739).
 
 The pair-HMM backend is pluggable: 'oracle' (NumPy float64 reference
-implementation); the per-window device backends ('jax', 'pallas') are not
-ported yet.  The batched engine (engine/batched.py) scores its windows
-through its own slabs."""
+implementation), or 'jax' (float64, exact ties) and 'pallas' (float32,
+fast ties), which run each window's pairs through the DP kernel on the
+engine's torch device (hmm/batch.py).  With --faster the sparse
+k-mer-seeded HMM (hmm/faster.py) runs on the host instead."""
 
 from __future__ import annotations
 
@@ -16,12 +17,15 @@ import math
 from typing import Dict, List, Optional, Set, Tuple
 
 from ..config import Parameters
+from ..device import resolve_device
 from ..model import Haplotype, LibraryCollection, MLAlignment, Read, HPOS_LO, HPOS_RO
 from ..out.glf import OutputData, make_glf_output
 from ..variants import AlignedCandidates, read_window_file
 from ..io.fasta import FastaFile
 from ..io.bam_native import open_bam
 from ..align.nw import align_haplotype_to_ref
+from ..hmm.batch import BACKENDS, BatchedPairHMM
+from ..hmm.faster import compute_likelihoods_faster
 from ..hmm.reference import pair_hmm_single
 from ..infer.filterhaps import filter_haplotypes
 from ..infer.diploid import diploid_glf, _WindowThrow
@@ -120,7 +124,7 @@ def _safe_cigar(hap, read, ml, ref_seq_pos):
 class WindowEngine:
     def __init__(self, bam_paths: List[str], fasta_path: str,
                  params: Parameters, libraries: Optional[LibraryCollection] = None,
-                 hmm_backend: str = "jax"):
+                 hmm_backend: str = "jax", device="cuda"):
         self.bams = [open_bam(p) for p in bam_paths]
         # captured once so the batched engine's finish worker never
         # touches the live reader objects while the main thread fetches
@@ -132,10 +136,14 @@ class WindowEngine:
         self.stats = RunStats()
         self.hmm_backend = hmm_backend
         self._batch_hmm = None
-        if hmm_backend in ("jax", "pallas"):
-            raise NotImplementedError(
-                f"the per-window hmm_backend {hmm_backend!r} "
-                "(BatchedPairHMM) is not ported yet: ROADMAP Queue 1 item 9")
+        # the oracle backend runs on the host and needs no device
+        self.device = None
+        if hmm_backend in BACKENDS:
+            self.device = resolve_device(device)
+            dtype, exact_ties = BACKENDS[hmm_backend]
+            self._batch_hmm = BatchedPairHMM(
+                params.obs_params, dtype, exact_ties=exact_ties,
+                device=self.device)
 
     # ------------------------------------------------------------------
     def get_ref_seq(self, lpos: int, rpos: int) -> str:
@@ -249,15 +257,16 @@ class WindowEngine:
         computeLikelihoodsFaster (DInDel.cpp:1793-1833): the sparse
         k-mer-seeded HMM, no positive-ll/NaN guards, every read counted
         on-hap."""
-        if not self.params.slower:
-            raise NotImplementedError(
-                "--faster (the sparse k-mer-seeded HMM) is not ported yet: "
-                "ROADMAP Queue 1 item 9")
-        if self._batch_hmm is not None:
-            liks = self._batch_hmm.compute(haps, reads, left_pos)
-        else:
-            liks = [[pair_hmm_single(hap, r, left_pos, self.params.obs_params)
-                     for r in reads] for hap in haps]
+        with self.stats.stage("window_hmm"):
+            if not self.params.slower:
+                return compute_likelihoods_faster(haps, reads, left_pos,
+                                                  self.params.obs_params)
+            if self._batch_hmm is not None:
+                liks = self._batch_hmm.compute(haps, reads, left_pos)
+            else:
+                liks = [[pair_hmm_single(hap, r, left_pos,
+                                         self.params.obs_params)
+                         for r in reads] for hap in haps]
         on_hap = check_guards_and_on_hap(liks, len(haps), len(reads))
         return liks, on_hap
 
@@ -268,8 +277,9 @@ class WindowEngine:
                                       glf_data: Optional[OutputData]) -> List[dict]:
         """DetInDel::empiricalDistributionMethod (DInDel.cpp:380-640)."""
         p = self.params
-        skip, haps, left_pos, right_pos = self.get_haplotypes(
-            reads, pos, left_pos, right_pos, candidates)
+        with self.stats.stage("hapgen"):
+            skip, haps, left_pos, right_pos = self.get_haplotypes(
+                reads, pos, left_pos, right_pos, candidates)
         if len(reads) * len(haps) > p.max_hap_read_prod:
             raise WindowError(f"skipped_numhap_times_numread>{p.max_hap_read_prod}")
         rows: List[dict] = []

@@ -1,5 +1,6 @@
 """The slab programs: expand -> DP -> finish, then either pair stats and
-window folds (device-call route) or nothing more (full-decode route).
+window folds (device-call route) or nothing more (full-decode route);
+and the dense program: DP -> finish on per-pair arrays.
 
 ``run_slab_stats`` is the counterpart of
 ``dindel_tpu.hmm.batch.run_slab_stats_fused`` + ``_finish_stats_call``
@@ -7,9 +8,12 @@ window folds (device-call route) or nothing more (full-decode route).
 result planes out.  ``run_slab_decode`` is the counterpart of
 ``run_packed_compact`` / ``_compact_core`` (batch.py:710-760): it
 returns the finish outputs, map_state included, for the host decode
-(hmm/liks.py LiksView).  The (L_pad-1, B, S_half) backpointer planes
-never leave either program; the results stay on the device until the
-engine's batch fetch."""
+(hmm/liks.py LiksView).  ``run_packed`` is the counterpart of
+``dindel_tpu.hmm.batch.run_packed`` (batch.py:413-443): one dense pk
+(pack.pack_pairs: a streaming window, or a batched engine's insert-prior
+slab) in, the same outputs as ``run_slab_decode`` out.  The (L_pad-1,
+B, S_half) backpointer planes never leave any program; the results stay
+on the device until the caller fetches them."""
 
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from .dp_kernel import pair_hmm_dp
 from .dp_ref import dp_bounds
 from .expand import expand_compact
 from .finish import finish
-from .pack import tables_to_device
+from .pack import compute_obs_mid, tables_to_device
 from .stats import pair_stats
 from ..infer.device_call import window_call
 
@@ -83,8 +87,38 @@ def run_slab_decode(pk: dict, exact_ties: bool, device):
     int32.  Columns at and past a pair's read_len are not defined
     (finish.py); every consumer masks them."""
     t = tables_to_device(pk, device)
-    out = _core(pk, t, exact_ties)
-    if 2 * (pk["H_pad"] + 2) < 2 ** 15:
+    return _narrow_map_state(_core(pk, t, exact_ties), pk["H_pad"])
+
+
+def run_packed(pk: dict, exact_ties: bool, device):
+    """Run one dense pk on `device`: K1 on the per-pair arrays, then
+    finish with the host's obs_mid (pack.compute_obs_mid) and the pk's
+    prior rows.  Only what K1 and finish consume is uploaded (not the
+    JAX package's lpeV/lpnV).  Returns device tensors as
+    run_slab_decode."""
+    H_pad, L_pad, numT = pk["H_pad"], pk["L_pad"], pk["numT"]
+
+    def up(a, dt=None):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.to(device=device, dtype=dt if dt is not None else t.dtype)
+
+    hap_len = up(pk["hap_len"], torch.int32)
+    b_mid = up(pk["b_mid"], torch.int32)
+    alpha_mid, beta_mid, btf, btb = pair_hmm_dp(
+        H_pad, L_pad, numT, hap_len, up(pk["read_len"], torch.int32), b_mid,
+        up(pk["read_codes"], torch.uint8), up(pk["hap_codes"], torch.uint8),
+        up(pk["eq"]), up(pk["uq"]), up(pk["lpe"]), up(pk["lpn"]),
+        pk["scalars"], exact_ties=exact_ties,
+        bounds=dp_bounds(pk["read_len"], pk["b_mid"], L_pad))
+    out = finish(H_pad, L_pad, numT, b_mid, hap_len, alpha_mid, beta_mid,
+                 up(compute_obs_mid(pk)), up(pk["prior_rmq"]),
+                 up(pk["prior_hmq"]), btf, btb, exact_ties=exact_ties)
+    return _narrow_map_state(out, H_pad)
+
+
+def _narrow_map_state(out, H_pad):
+    """map_state as int16 when every state code fits (batch.py:439-442)."""
+    if 2 * (H_pad + 2) < 2 ** 15:
         out = out[:-1] + (out[-1].to(torch.int16),)
     return out
 

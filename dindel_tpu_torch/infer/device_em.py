@@ -73,9 +73,10 @@ def em_sets(rl, rmask, compat, numah, nr, a0: float, tol: float):
 
 
 def run_batched_em(instances: List[Tuple[np.ndarray, np.ndarray, np.ndarray]],
-                   a0: float, tol: float, dtype=np.float32, device="cpu"):
+                   a0: float, tol: float, dtype=np.float32, *, device):
     """instances: per pooled window, (rlT (nr, nh), compat (nav, nh) bool,
-    numah (nav,)) from pooled.em_inputs.  Returns per window a list of
+    numah (nav,)) from pooled.em_inputs; `device` is where the VB-EM
+    runs (no default: the caller names it).  Returns per window a list of
     (loglik, pi) per active set (numpy float64), as the original does;
     the padding is the original's."""
     if not instances:

@@ -1,6 +1,8 @@
 """dindel_tpu_torch on the card: the CUDA DP kernel against its plain
-PyTorch version, and the slab programs (both routes), the pooled VB-EM
-and the engine on CUDA against the CPU.  Every test is marked ``cuda`` and skips without a CUDA device
+PyTorch version, and the slab programs (both routes), the dense program
+and the per-window backend at a streaming window's shape (float64 exact
+and float32 fast), the pooled VB-EM and both engines on CUDA against
+the CPU.  Every test is marked ``cuda`` and skips without a CUDA device
 (the kernel has no CPU mode).  This file imports no JAX, so it also runs
 on a GPU host that has none; tests/conftest.py imports JAX, hence
 
@@ -20,13 +22,16 @@ from chip_smoke import EDGE_CASES, dp_mismatches, edge_inputs
 from dindel_tpu_torch.config import ObservationModelParameters, Parameters
 from dindel_tpu_torch.engine.batched import BatchedWindowEngine
 from dindel_tpu_torch.engine.candidates import get_candidates
+from dindel_tpu_torch.engine.window import WindowEngine
+from dindel_tpu_torch.hmm.batch import BACKENDS, BatchedPairHMM
 from dindel_tpu_torch.hmm.dp_ref import dp_bounds, dp_ref
 from dindel_tpu_torch.hmm.expand import expand_compact
 from dindel_tpu_torch.hmm.liks import LiksView
-from dindel_tpu_torch.hmm.pack import (merge_compact, pack_pairs_compact,
-                                       pad_compact, synth_windows,
-                                       tables_to_device)
-from dindel_tpu_torch.hmm.slab import run_slab_decode, run_slab_stats
+from dindel_tpu_torch.hmm.pack import (merge_compact, pack_pairs,
+                                       pack_pairs_compact, pad_compact,
+                                       synth_windows, tables_to_device)
+from dindel_tpu_torch.hmm.slab import (run_packed, run_slab_decode,
+                                       run_slab_stats)
 from dindel_tpu_torch.infer.device_em import run_batched_em
 from dindel_tpu_torch.io.bam import BamReader
 from dindel_tpu_torch.pipeline.windows import make_windows
@@ -228,6 +233,7 @@ def test_engine_card_equals_cpu(cuda, tmp_path, realigned):
         for wf in win_files:
             eng.detect_indels(wf, glf)
         eng.close()
+        assert eng.stats.stage_seconds.get("slab_rescues", 0) == 0
         glfs.append(open(glf).read())
         bams.append(_ra_records(str(tmp_path / dev)))
     assert pair_hmm_dp.launches > n0
@@ -235,3 +241,73 @@ def test_engine_card_equals_cpu(cuda, tmp_path, realigned):
     assert glfs[0] == glfs[1]
     assert bool(bams[0]) == realigned
     assert bams[0] == bams[1]
+
+
+def _streaming_window():
+    """One window at a streaming window's shape: 5 haps x 64 reads,
+    H 160, L 100 (phase 4 of chip_smoke.py)."""
+    (haps, reads, hs), = synth_windows(1, nh=5, nr=64, H=160, L=100, seed=3)
+    return haps, reads, hs
+
+
+@pytest.mark.parametrize("backend", ["jax", "pallas"])
+def test_run_packed_card_equals_cpu(cuda, backend):
+    """The dense program (K1 + finish) in float64 exact ties ('jax') and
+    float32 fast ties ('pallas'): one kernel launch; the five scalar
+    planes equal, map_state equal inside each read."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    dtype, exact = BACKENDS[backend]
+    haps, reads, hs = _streaming_window()
+    pk = pack_pairs(haps, reads, hs, ObservationModelParameters(), dtype)
+    n0 = pair_hmm_dp.launches
+    gpu = [t.cpu().numpy() for t in run_packed(pk, exact, cuda)]
+    assert pair_hmm_dp.launches == n0 + 1
+    cpu = [t.numpy() for t in run_packed(pk, exact, "cpu")]
+    for c, g in zip(cpu[:5], gpu[:5]):
+        assert c.dtype == g.dtype and np.array_equal(c, g)
+    valid = np.arange(pk["L_pad"])[None, :] < pk["read_len"][:, None]
+    assert np.array_equal(cpu[5][valid], gpu[5][valid])
+
+
+@pytest.mark.parametrize("backend", ["jax", "pallas"])
+def test_batched_pair_hmm_card_equals_cpu(cuda, backend):
+    dtype, exact = BACKENDS[backend]
+    haps, reads, hs = _streaming_window()
+    views = [BatchedPairHMM(ObservationModelParameters(), dtype,
+                            exact_ties=exact, device=dev).compute(
+                                haps, reads, hs)
+             for dev in ("cpu", cuda)]
+    for k in ("ll2d", "off_hap2d", "off_hap_hmq2d"):
+        assert np.array_equal(getattr(views[0], k), getattr(views[1], k))
+    assert views[0].materialize() == views[1].materialize()
+
+
+@pytest.mark.parametrize("backend", ["jax", "pallas"])
+def test_streaming_engine_card_equals_cpu(cuda, tmp_path, backend):
+    """The streaming engine writes the same GLF bytes on the card as on
+    the CPU, one kernel launch per scored window."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    fa, bam = simulate(str(tmp_path / "sim"),
+                       [PlantedVariant(pos=600, var="-ACG", genotype=1),
+                        PlantedVariant(pos=1400, var="+TT", genotype=2)],
+                       SimConfig(ref_len=2000, coverage=12, read_len=50),
+                       seed=9)
+    var_file, _ = get_candidates(bam, str(tmp_path / "cand"), fa)
+    wf = make_windows(var_file, str(tmp_path / "win"))[0]
+    glfs = []
+    for dev in ("cpu", "cuda"):
+        params = Parameters()
+        params.do_diploid = True
+        params.file_name = str(tmp_path / dev)
+        eng = WindowEngine([bam], fa, params, hmm_backend=backend,
+                           device=dev)
+        n0 = pair_hmm_dp.launches
+        eng.detect_indels(wf, params.file_name + ".glf.txt")
+        eng.close()
+        glfs.append(open(params.file_name + ".glf.txt").read())
+    assert eng.stats.windows_ok >= 2
+    assert pair_hmm_dp.launches - n0 >= 2
+    assert "dip.map" in glfs[0]
+    assert glfs[0] == glfs[1]

@@ -42,6 +42,7 @@ from dindel_tpu_torch.hmm.slab import run_slab_decode
 from dindel_tpu_torch.infer.diploid import diploid_glf
 from dindel_tpu_torch.infer.filterhaps import filter_haplotypes
 from test_torch_slab import _merged
+from test_torch_engine import no_slab_rescues  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 

@@ -32,6 +32,7 @@ from dindel_tpu_torch.hmm import pack
 from dindel_tpu_torch.hmm.liks import LiksStats
 from dindel_tpu_torch.infer import device_call as tdc
 from test_device_call import _sim
+from test_torch_engine import no_slab_rescues  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
@@ -208,10 +209,19 @@ _NO_JAX = textwrap.dedent("""
     sys.modules["jax"] = None
     sys.modules["dindel_tpu"] = None
     sys.path.insert(0, {repo!r})
+    import torch
+    torch.set_num_threads(1)  # the test runs beside other workers
     import dindel_tpu_torch
     from dindel_tpu_torch import cli
     from dindel_tpu_torch.engine.batched import BatchedWindowEngine
     from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
+    from dindel_tpu_torch.engine import window
+    _close = window.WindowEngine.close
+
+    def _checked(eng):  # every engine must close with no slab rescued
+        _close(eng)
+        assert not eng.stats.stage_seconds.get("slab_rescues"), "rescue"
+    window.WindowEngine.close = _checked
 
     fa, bam = simulate("sim", [PlantedVariant(pos=500, var="-AC",
                                               genotype=1)],

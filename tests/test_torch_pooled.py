@@ -32,6 +32,7 @@ from dindel_tpu_torch.infer import pooled
 from dindel_tpu_torch.infer.device_em import run_batched_em
 from test_device_em import _compare
 from test_torch_decode import _params, _run, _sim_windows, _staged_planes
+from test_torch_engine import no_slab_rescues  # noqa: F401 (autouse)
 
 torch.set_num_threads(1)
 
@@ -99,7 +100,7 @@ def test_pooled_callers_match_jax(liks_pairs, program, kind):
         for w, g in zip(want, got):
             assert g.dtype == w.dtype and np.array_equal(g, w)
         em = run_batched_em([got], params.bayes_a0, params.em_tol,
-                            dtype=np.float64)[0]
+                            dtype=np.float64, device="cpu")[0]
         for em_results in (None, em):
             res = []
             for mod, liks in ((jpooled, jl), (pooled, tl)):
@@ -136,7 +137,8 @@ def _instances(seed, n):
 def test_device_em_matches_jax_f64():
     insts = _instances(3, 7)
     want = jax_run_batched_em(insts, 0.001, 1e-4, dtype=np.float64)
-    got = run_batched_em(insts, 0.001, 1e-4, dtype=np.float64)
+    got = run_batched_em(insts, 0.001, 1e-4, dtype=np.float64,
+                         device="cpu")
     assert len(got) == len(want) == len(insts)
     for gw, ww, (_rl, cp, _na) in zip(got, want, insts):
         assert len(gw) == len(ww) == cp.shape[0]
@@ -157,7 +159,7 @@ def test_device_em_converges_like_host():
     compat = np.array([[1, 1, 0, 1, 1], [1, 0, 0, 0, 1]], bool)
     numah = np.array([4.0, 2.0])
     res = run_batched_em([(rlT, compat, numah)], a0=0.001, tol=1e-4,
-                         dtype=np.float64)[0]
+                         dtype=np.float64, device="cpu")[0]
     for a in range(2):
         lpi = np.where(compat[a], math.log(1.0 / numah[a]), -100.0)
         e_old = -math.inf

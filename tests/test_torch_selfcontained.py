@@ -4,8 +4,9 @@ package ``dindel_tpu`` and nothing of ``jax``.
 An AST scan of every module of the port and of chip_smoke.py rejects any
 such import, at top level or inside a function; a subprocess with both
 blocked by a ``sys.meta_path`` finder drives every verb of the port's CLI
-on a small sim, the diploid, pooled and full-decode ``indels`` paths on
-the CPU included."""
+on a small sim, the diploid, pooled, full-decode and dense insert-prior
+``indels`` paths of the batched engine, the default streaming engine and
+``--faster`` on the CPU included."""
 
 import ast
 import subprocess
@@ -82,7 +83,16 @@ _BLOCKED_RUN = textwrap.dedent("""
 
     sys.meta_path.insert(0, Block())
     sys.path.insert(0, {repo!r})
+    import torch
+    torch.set_num_threads(1)  # the test runs beside other workers
     from dindel_tpu_torch import cli
+    from dindel_tpu_torch.engine import window
+    _close = window.WindowEngine.close
+
+    def _checked(eng):  # every engine must close with no slab rescued
+        _close(eng)
+        assert not eng.stats.stage_seconds.get("slab_rescues"), "rescue"
+    window.WindowEngine.close = _checked
     from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
 
     fa, bam = simulate("sim", [PlantedVariant(pos=500, var="-AC",
@@ -120,6 +130,18 @@ _BLOCKED_RUN = textwrap.dedent("""
     # the full-decode route: host decode, host callers, realigned BAMs
     glf = indels("ra", "--doDiploid", "--outputRealignedBAM")
     assert "dip.map" in glf and glob.glob("ra.ra.*.bam"), glf
+    # the dense insert-prior slabs (the libraries file of getCIGARindels)
+    glf = indels("ip", "--doDiploid", "--insertPrior", "--libFile",
+                 "cand.libraries.txt")
+    assert "dip.map" in glf, glf
+    # the default engine (streaming, float64 exact ties), and --faster,
+    # on the first window
+    open("first.txt", "w").write(open("win.1.txt").readline())
+    for out, extra in (("stream", ()), ("faster", ("--faster",))):
+        run("--analysis", "indels", "--doDiploid", "--device", "cpu",
+            "--bamFile", bam, "--ref", fa, "--varFile", "first.txt",
+            "--outputFile", out, *extra)
+        assert "dip.map" in open(out + ".glf.txt").read(), out
     # the pooled caller with its device EM
     glf = indels("pool", "--doPooled")
     assert "singlevariant" in glf, glf
