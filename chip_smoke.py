@@ -64,15 +64,28 @@ Phases, in order; any failure exits non-zero:
    CPU: GLF identical;
 12. shards: the 120 windows split into two window files, through
    pipeline.run_parallel.run_and_merge_diploid with two spawned workers
-   on the one card: the merged VCF equal to the single-process run's.
+   on the one card: the merged VCF equal to the single-process run's;
+13. mesh: the 120 windows through the batched engine (the shipped
+   configuration) on a 2x2 mesh (four distinct cards where the host has
+   them, else the one card four times): GLF byte-equal to the
+   single-device engine's, the kernel launched once per shard of every
+   sharded slab; wall, windows/s and slab_dispatch per shard program;
+   the CLI with --mesh 1x1 byte-equal to the CLI without it; and
+   parallel.mesh.dryrun_multichip(8) over the one card eight times;
+14. hostshard: the 120 windows in four window files through the CLI with
+   --stageProcs 2 and through parallel.hostshard.run_hostshard with four
+   staging processes and two repeats: merged GLFs byte-equal to one
+   engine running the four files in sequence; the cold wall, the warm
+   windows/s, the server's enqueue and fetch seconds, and each staging
+   process's stage seconds and CUDA state (never initialized).
 
-Every engine this process closes, and every shard worker's, must have
-rescued no slab (a rescue would hide a broken device path).  The line
-before the last is the kernel table as JSON, with the kernel's launches
-on each path (device call, decode, pooled, streaming float64 and
-float32, dense); the last line is {"ok": true, "device": {...}}.  Needs
-nothing but the repository, the CUDA toolkit and PyTorch; imports no
-JAX."""
+Every engine this process closes, every shard worker's and every
+staging process's must have rescued no slab (a rescue would hide a
+broken device path).  The line before the last is the kernel table as
+JSON, with the kernel's launches on each path (device call, decode,
+pooled, streaming float64 and float32, dense, mesh, hostshard); the
+last line is {"ok": true, "device": {...}}.  Needs nothing but the
+repository, the CUDA toolkit and PyTorch; imports no JAX."""
 
 from __future__ import annotations
 
@@ -90,7 +103,7 @@ NH, NR, H, L = 8, 768, 160, 100        # bench.py:158 DP geometry
 ENGINE_SLAB_WINDOWS = 4                # 4 x 6144 = 24576 pairs
 N_VARIANTS, COVERAGE, READ_LEN = 360, 30, 100   # tools/bench_windows.py
 PARITY_WINDOWS = 24
-PATH_WINDOWS = 120                     # phases 7 and 9-12
+PATH_WINDOWS = 120                     # phases 7 and 9-14
 FASTER_PROCS = 6       # phase 10's --faster windows over six CLI processes
 SENTINEL_FLANK = 62    # phase 4's variant flanks start 58-60 bases in
 EM_RTOL, EM_ATOL = 2e-3, 1e-2          # tests/test_device_em.py:75
@@ -207,8 +220,8 @@ def dp_inputs(n_windows, seed, device):
     from dindel_tpu_torch.hmm.dp_ref import dp_bounds
     from dindel_tpu_torch.hmm.expand import expand_compact
     from dindel_tpu_torch.hmm.pack import (merge_compact, pack_pairs_compact,
-                                           pad_compact, synth_windows,
-                                           tables_to_device)
+                                           pad_compact, tables_to_device)
+    from dindel_tpu_torch.parallel.mesh import synth_windows
 
     params = ObservationModelParameters()
     wins = synth_windows(n_windows, nh=NH, nr=NR, H=H, L=L, seed=seed)
@@ -538,11 +551,12 @@ def glf_rows_ok(glfs):
 
 
 def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
-                max_pairs=24576, flank=None, f64=False, **attrs):
+                max_pairs=24576, flank=None, f64=False, mesh=None, **attrs):
     """One pass of the port's batched engine (the shipped configuration:
-    float32, fast ties; with `f64`, float64 and exact ties); `attrs` are
-    set on the Parameters (diploid by default), `flank` is
-    --flankRefSeq."""
+    float32, fast ties; with `f64`, float64 and exact ties; on `mesh`
+    when given) over the window files in order, their GLFs merged into
+    `glf` as hostshard merges its shards (one header); `attrs` are set on
+    the Parameters (diploid by default), `flank` is --flankRefSeq."""
     import numpy as np
     from dindel_tpu_torch.config import Parameters
     from dindel_tpu_torch.engine.batched import BatchedWindowEngine
@@ -558,15 +572,23 @@ def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
                               exact_ties=f64,
                               dtype=np.float64 if f64 else np.float32,
                               device_folds=folds, device_em=em,
-                              max_pairs_per_slab=max_pairs)
+                              max_pairs_per_slab=max_pairs, mesh=mesh)
+    parts = ([Path(f"{glf}.{i}") for i in range(len(win_files))]
+             if len(win_files) > 1 else [Path(glf)])
     t0 = time.perf_counter()
     try:
-        for wf in win_files:
-            eng.detect_indels(str(wf), str(glf))
+        for wf, part in zip(win_files, parts):
+            eng.detect_indels(str(wf), str(part))
         sync(device)
     finally:
         eng.close()
-    return time.perf_counter() - t0, eng.stats.summary()
+    wall = time.perf_counter() - t0
+    if len(parts) > 1:
+        with open(glf, "w") as out:
+            for i, part in enumerate(parts):
+                lines = part.read_text().splitlines(keepends=True)
+                out.writelines(lines if i == 0 else lines[1:])
+    return wall, eng.stats.summary()
 
 
 def slice_phase(d: Path, device, n_var, coverage, read_len):
@@ -619,15 +641,16 @@ def window_subset(wins, n_windows, path: Path):
 class Spy:
     """While active: counts the batched engine's slab programs per route
     (run_slab_stats: device call, run_slab_decode: full decode,
-    run_packed: dense) and its device VB-EM dispatches, and the streaming
+    run_slab_decode_sharded: full decode on a mesh, run_packed: dense)
+    and its device VB-EM dispatches, and the streaming
     engine's scored windows (BatchedPairHMM.compute, with each window's
     pair count B, H_pad and L_pad in `shapes`, and the seconds of its
     pack, device and decode steps in `split`); keeps each engine's
     RunStats summary at close.  Wraps the names the engine modules call;
     restores them on exit."""
 
-    NAMES = ("run_slab_stats", "run_slab_decode", "run_packed",
-             "run_batched_em")
+    NAMES = ("run_slab_stats", "run_slab_decode", "run_slab_decode_sharded",
+             "run_packed", "run_batched_em")
     SPLIT = {"pack_pairs": "pack", "run_packed": "device",
              "decode_liks_view": "decode"}
 
@@ -1142,6 +1165,129 @@ def shards_phase(d: Path, fa, bam, wins, device):
         raise SystemExit("shards phase failed: merged VCFs differ")
 
 
+def mesh_phase(d: Path, fa, bam, wins, device):
+    """Phase 13 (C10): the batched engine on a 2x2 mesh."""
+    import torch
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+    from dindel_tpu_torch.parallel.mesh import dryrun_multichip, make_mesh
+
+    d.mkdir()
+    sub, n = window_subset(wins, PATH_WINDOWS, d / "win.txt")
+    first = torch.device(device)
+    if first.type == "cuda" and torch.cuda.device_count() >= 4:
+        devices = [torch.device("cuda", i) for i in range(4)]
+    else:
+        devices = [first] * 4
+    mesh = make_mesh(2, 2, devices)
+    wall1, st1 = engine_pass(fa, bam, [sub], d / "single.glf.txt", device)
+    log(f"[mesh] single device: {st1['windows_ok']} windows ok in "
+        f"{wall1:.3f} s = {st1['windows_ok'] / wall1:.6g} windows/s; "
+        f"slab_dispatch {st1['stage_seconds'].get('slab_dispatch', 0):.3f} s")
+    pair_hmm_dp.launches = 0
+    with Spy() as spy:
+        wall, st = engine_pass(fa, bam, [sub], d / "mesh.glf.txt", device,
+                               mesh=mesh)
+    launches = pair_hmm_dp.launches
+    sharded = (spy.counts["run_slab_stats"]
+               + spy.counts["run_slab_decode_sharded"])
+    same = ((d / "mesh.glf.txt").read_bytes()
+            == (d / "single.glf.txt").read_bytes())
+    dispatch = st["stage_seconds"].get("slab_dispatch", 0.0)
+    stages = {k: round(v, 3) for k, v in st["stage_seconds"].items()}
+    log(f"[mesh] 2x2 mesh over {[str(x) for x in mesh.flat]}, {n} windows: "
+        f"windows_ok {st['windows_ok']} in {wall:.3f} s = "
+        f"{st['windows_ok'] / wall:.6g} windows/s; stage seconds {stages}; "
+        f"sharded slabs {sharded}, kernel launches {launches} (4 per "
+        f"sharded slab: {launches == 4 * sharded}); slab_dispatch "
+        f"{dispatch:.3f} s = {dispatch / max(1, 4 * sharded) * 1e3:.6g} ms "
+        f"per shard program; GLF byte-identical to the single device {same}")
+    if not same or sharded <= 0 or launches != 4 * sharded:
+        raise SystemExit("mesh phase failed: GLF/launches")
+    glfs = []
+    for tag, extra in (("cli_plain", ()), ("cli_mesh", ("--mesh", "1x1"))):
+        cli_wall = indels_cli(fa, bam, sub, d / tag, device, "--doDiploid",
+                              *extra)
+        glfs.append((d / f"{tag}.glf.txt").read_bytes())
+        log(f"[mesh] CLI {' '.join(extra) or 'without --mesh'}: {n} windows "
+            f"in {cli_wall:.3f} s")
+    log(f"[mesh] CLI --mesh 1x1 GLF byte-identical to the CLI without "
+        f"--mesh {glfs[0] == glfs[1]}")
+    if glfs[0] != glfs[1]:
+        raise SystemExit("mesh phase failed: CLI --mesh 1x1 differs")
+    t0 = time.perf_counter()
+    dryrun_multichip(8, [first] * 8)
+    log(f"[mesh] dryrun_multichip(8) over {first} x 8 (sharded slab vs "
+        f"single in float32 exact and fast, dp x rp window step): passed "
+        f"in {time.perf_counter() - t0:.3f} s")
+    return launches
+
+
+def hostshard_phase(d: Path, fa, bam, wins, device):
+    """Phase 14 (C11): staging processes feeding this process's card."""
+    import numpy as np
+    from dindel_tpu_torch.config import Parameters
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+    from dindel_tpu_torch.parallel.hostshard import run_hostshard
+
+    d.mkdir()
+    sub, n = window_subset(wins, PATH_WINDOWS, d / "all.txt")
+    lines = open(sub).read().splitlines()
+    per = -(-len(lines) // 4)
+    files = [d / f"part{i}.txt" for i in range(4)]
+    for i, f in enumerate(files):
+        f.write_text("\n".join(lines[i * per:(i + 1) * per]) + "\n")
+    wall_seq, st = engine_pass(fa, bam, files, d / "seq.glf.txt", device)
+    seq = (d / "seq.glf.txt").read_bytes()
+    log(f"[hostshard] one process, the four files in sequence: "
+        f"{st['windows_ok']} windows ok in {wall_seq:.3f} s = "
+        f"{st['windows_ok'] / wall_seq:.6g} windows/s")
+    cli_wall = indels_cli(fa, bam, ",".join(str(f) for f in files),
+                          d / "cli", device, "--doDiploid", "--stageProcs", 2)
+    cli_same = (d / "cli.glf.txt").read_bytes() == seq
+    log(f"[hostshard] CLI --stageProcs 2 (cold: spawn, imports, staging): "
+        f"{n} windows in {cli_wall:.3f} s = {n / cli_wall:.6g} windows/s; "
+        f"GLF byte-identical to one process {cli_same}")
+    params = Parameters()
+    params.do_diploid = True
+    params.file_name = str(d / "hs")
+    stats = {}
+    pair_hmm_dp.launches = 0
+    t0 = time.perf_counter()
+    run_hostshard([bam], fa, params, [str(f) for f in files],
+                  str(d / "hs.glf.txt"), n_procs=4, repeats=2,
+                  stats_out=stats,
+                  engine_kw=dict(dtype=np.float32, exact_ties=False),
+                  device=device)
+    wall = time.perf_counter() - t0
+    launches = pair_hmm_dp.launches
+    same = (d / "hs.glf.txt").read_bytes() == seq
+    procs = stats["per_proc"]
+    first = [m["repeats"][0] for m in procs]
+    cold_span = max(m["t1"] for m in first) - min(m["t0"] for m in first)
+    span = stats.get("warm_span_s")
+    warm_rate = stats["warm_windows"] / span if span else float("nan")
+    srv = stats["server"]
+    log(f"[hostshard] run_hostshard, 4 staging processes x 2 repeats: wall "
+        f"{wall:.3f} s (spawn and imports included); first repeat "
+        f"{sum(m['windows'] for m in first)} windows in {cold_span:.3f} s; "
+        f"warm {stats.get('warm_windows')} windows in {span!r} s = "
+        f"{warm_rate:.6g} windows/s; kernel launches {launches}; server: "
+        f"{srv['dispatches']} slab programs, enqueue {srv['dispatch_s']:.3f} "
+        f"s, fetch {srv['fetch_s']:.3f} s; GLF byte-identical to one "
+        f"process {same}")
+    for i, pst in enumerate(procs):
+        stages = {k: round(v, 3) for k, v in pst["stage_seconds"].items()}
+        log(f"[hostshard] staging process {i}: windows_ok "
+            f"{pst['windows_ok']}, cuda_initialized "
+            f"{pst['cuda_initialized']}, stage seconds {stages}")
+    if (not same or not cli_same or launches <= 0 or any(
+            pst["cuda_initialized"] or pst["stage_seconds"].get(
+                "slab_rescues", 0) for pst in procs)):
+        raise SystemExit("hostshard phase failed: GLF/launches/CUDA in a "
+                         "staging process/rescues")
+    return launches
+
+
 def golden_phase(d: Path, device):
     from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
 
@@ -1235,6 +1381,9 @@ def main() -> int:
                                        tmp / "slice" / "cand.libraries.txt",
                                        dev)
         shards_phase(tmp / "shards", fa, bam, wins, dev)
+        by_path["mesh"] = mesh_phase(tmp / "mesh", fa, bam, wins, dev)
+        by_path["hostshard"] = hostshard_phase(tmp / "hostshard", fa, bam,
+                                               wins, dev)
     log(f"[rescues] {len(closed)} engines closed in this process, slab "
         f"rescues {sum(closed)}")
 

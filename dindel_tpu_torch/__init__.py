@@ -6,9 +6,12 @@ streaming engine (``--analysis indels``, the default: one window at a
 time, ``--hmmBackend jax|pallas|oracle`` and ``--faster``); the batched
 engine (``--engine batched``) with the diploid and pooled callers on the
 device-call and full-decode routes, dense insert-prior slabs and slab
-rescue; and the window-file shard driver (``pipeline/run_parallel.py``).
-Multi-GPU meshes and multi-process staging are not ported yet.  The port
-is self-contained: it carries its own copy of every host module it runs
+rescue; the window-file shard driver (``pipeline/run_parallel.py``);
+the batched engine's slab programs sharded over a dp x rp mesh of
+devices (``--mesh``, ``parallel/mesh.py``) and multi-process host
+staging feeding one device (``--stageProcs``, ``parallel/hostshard.py``);
+and the entry points of ``entry.py``.  The port is
+self-contained: it carries its own copy of every host module it runs
 (BAM/FASTA I/O, read fetch, haplotype generation, NW, the callers, GLF
 output, the pipeline verbs), under the same sub-paths as in
 ``dindel_tpu``, and imports nothing of that package.  Its native helpers

@@ -20,13 +20,17 @@ this package's engines, as ``python -m dindel_tpu`` does:
 
 Both take ``--doDiploid`` and ``--doPooled`` (alone or together),
 ``--outputRealignedBAM``, ``--opl``, ``--insertPrior`` and ``--libFile``.
-``--mesh`` and ``--stageProcs`` raise NotImplementedError naming their
-ROADMAP item."""
+The batched engine also takes ``--mesh DPxRP`` (its slab programs
+sharded over dp*rp cards, or over the CPU with ``--device cpu``) or
+``--stageProcs N`` (N staging processes feeding this process's device
+over a comma-separated ``--varFile``; parallel/hostshard.py)."""
 
 from __future__ import annotations
 
 import argparse
 import sys
+
+import numpy as np
 
 from .config import Parameters
 from .model import LibraryCollection
@@ -148,9 +152,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "shard unit)")
     ap.add_argument("--mesh", default=None, metavar="DPxRP",
                     help="shard the batched engine's device slabs over a "
-                         "dp x rp jax.sharding.Mesh, e.g. --mesh 4x2 "
-                         "(TPU-native scale-out; requires dp*rp local "
-                         "devices)")
+                         "dp x rp mesh, e.g. --mesh 4x2 (requires dp*rp "
+                         "cards with --device cuda; --device cpu runs "
+                         "every shard on the CPU)")
     ap.add_argument("--inferenceMethod", default="empirical",
                     help="inference method (only 'empirical' does anything, "
                          "as in the reference, DInDel.cpp:1365)")
@@ -246,21 +250,7 @@ def params_from_args(args) -> Parameters:
     return p
 
 
-def _unsupported(args) -> None:
-    todo = [
-        (bool(args.mesh), "--mesh (multi-GPU): ROADMAP Queue 1 item 11"),
-        (args.stageProcs > 0,
-         "--stageProcs (multi-process host staging): ROADMAP Queue 1 "
-         "item 12"),
-    ]
-    for hit, what in todo:
-        if hit:
-            raise NotImplementedError(f"not ported to dindel_tpu_torch "
-                                      f"yet: {what}")
-
-
 def _indels(args) -> int:
-    _unsupported(args)
     params = params_from_args(args)
     bam_paths = ([args.bamFile] if args.bamFile
                  else [line.split()[0] for line in open(args.bamFiles)])
@@ -271,15 +261,33 @@ def _indels(args) -> int:
     # the batched engine pipelines host staging with device slabs; the
     # streaming engine is the per-window reference path (and the --faster
     # sparse-HMM path), dindel_tpu/cli.py:254-289
-    if args.engine == "batched" and params.slower:
-        import numpy as np
-
+    use_batched = args.engine == "batched" and params.slower
+    if (args.mesh or args.stageProcs > 0) and not use_batched:
+        raise ValueError("--mesh and --stageProcs need --engine batched "
+                         "(and no --faster)")
+    if args.mesh and args.stageProcs > 0:
+        raise ValueError("--mesh and --stageProcs are exclusive")
+    # the batched engine's arguments (float32; --hmmBackend pallas is the
+    # fast fold, the others the exact one)
+    engine_kw = dict(batch_windows=args.batchWindows,
+                     max_pairs_per_slab=args.maxPairsPerSlab,
+                     exact_ties=args.hmmBackend != "pallas",
+                     dtype=np.float32)
+    if use_batched and args.stageProcs > 0:
+        from .parallel.hostshard import run_hostshard
+        run_hostshard(bam_paths, args.ref, params, args.varFile.split(","),
+                      params.file_name + ".glf.txt", n_procs=args.stageProcs,
+                      engine_kw=engine_kw, lib_file=args.libFile,
+                      device=args.device)
+        return 0
+    if use_batched:
         from .engine.batched import BatchedWindowEngine
-        eng = BatchedWindowEngine(
-            bam_paths, args.ref, params, libraries, device=args.device,
-            batch_windows=args.batchWindows,
-            max_pairs_per_slab=args.maxPairsPerSlab,
-            exact_ties=args.hmmBackend != "pallas", dtype=np.float32)
+        mesh = None
+        if args.mesh:
+            n_dp, n_rp = (int(t) for t in args.mesh.lower().split("x"))
+            mesh = (n_dp, n_rp)
+        eng = BatchedWindowEngine(bam_paths, args.ref, params, libraries,
+                                  device=args.device, mesh=mesh, **engine_kw)
     else:
         from .engine.window import WindowEngine
         eng = WindowEngine(bam_paths, args.ref, params, libraries,

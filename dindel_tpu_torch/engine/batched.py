@@ -1,4 +1,5 @@
-"""Batched window processing on one torch device.
+"""Batched window processing on one torch device, a mesh of devices, or
+a device server in another process.
 
 Counterpart of ``dindel_tpu.engine.batched.BatchedWindowEngine``
 (engine/batched.py:88), for the diploid and the pooled caller:
@@ -30,9 +31,16 @@ the per-window backend (float64, exact ties, the DP kernel on this
 engine's device: WindowEngine.compute_likelihoods); every rescue is
 counted in stats.stage_seconds["slab_rescues"] and its first cause is
 printed to stderr.  --faster runs the streaming engine (the CLI routes
-it there) and raises ValueError here.  Mesh sharding (ROADMAP Queue 1
-item 11) and multi-process staging (item 12) are not ported; the CLI
-refuses --mesh and --stageProcs."""
+it there) and raises ValueError here.
+
+With ``mesh`` (a parallel.mesh.Mesh, or (n_dp, n_rp), --mesh) the
+device-call and full-decode slab programs run with their pair axis
+sharded over the mesh (hmm/slab.py run_slab_decode_sharded); dense slabs,
+the device EM and the rescue run on the mesh's first device.  With
+``remote`` (a parallel.hostshard.DeviceProxy, --stageProcs) this engine
+stages on the host and ships each slab's numpy tables to the device
+server, which runs the slab program; the batch's results come back in
+one round trip."""
 
 from __future__ import annotations
 
@@ -44,10 +52,12 @@ from typing import List, Optional
 
 import numpy as np
 
+from ..device import resolve_device
 from ..hmm.liks import LiksStats, decode_liks_view
 from ..hmm.pack import (_round_up, merge_compact, pack_pairs,
                         pack_pairs_compact, pad_compact)
-from ..hmm.slab import run_packed, run_slab_decode, run_slab_stats
+from ..hmm.slab import (run_packed, run_slab_decode, run_slab_decode_sharded,
+                        run_slab_stats)
 from ..infer.device_call import (build_call_tables, diploid_glf_dev,
                                  filter_haplotypes_dev, host_window_folds,
                                  pair_enum)
@@ -56,6 +66,7 @@ from ..infer.diploid import _WindowThrow, diploid_glf
 from ..infer.filterhaps import filter_haplotypes
 from ..infer.pooled import em_inputs, estimate_hap_freqs_bayes_em
 from ..out.glf import OutputData, make_glf_output
+from ..parallel.mesh import Mesh, make_mesh
 from ..variants import read_window_file
 from .reads import ReadBuffer, WindowError, get_reads
 from .window import WindowEngine, check_guards_and_on_hap
@@ -79,17 +90,34 @@ class BatchedWindowEngine(WindowEngine):
     GLF byte contract is anchored to.  device_em (the same default)
     runs the pooled caller's VB-EM of the device-call windows on the
     device (infer/device_em.py); otherwise, and always for full-decode
-    windows, the host loop runs it, which is the byte-parity anchor."""
+    windows, the host loop runs it, which is the byte-parity anchor.
+
+    mesh (a Mesh, or (n_dp, n_rp) built on `device`'s type) shards the
+    compact slab programs over its devices and makes its first device
+    the engine's device.  remote (a hostshard.DeviceProxy) runs every
+    slab program in the device server; device EM is then off.  The two
+    are exclusive."""
 
     def __init__(self, bam_paths, fasta_path, params, libraries=None, *,
                  device="cuda", batch_windows: int = 128,
                  max_pairs_per_slab: int = 24576, exact_ties: bool = False,
                  dtype=np.float32, device_folds: Optional[bool] = None,
-                 device_em: Optional[bool] = None):
+                 device_em: Optional[bool] = None, mesh=None, remote=None):
         if not params.slower:
             raise ValueError(
                 "the batched engine has no --faster path: --faster runs "
                 "the streaming engine (WindowEngine), as the CLI routes it")
+        if mesh is not None:
+            if remote is not None:
+                raise ValueError("remote staging and mesh sharding are "
+                                 "exclusive")
+            if not isinstance(mesh, Mesh):
+                # (n_dp, n_rp) on the engine's device type: cuda:0.. or
+                # the one CPU repeated
+                dev = resolve_device(device)
+                mesh = make_mesh(*mesh, devices=None if dev.type == "cuda"
+                                 else [dev] * (mesh[0] * mesh[1]))
+            device = mesh.first
         # the per-window backend of the slab rescue: float64, exact ties,
         # the DP kernel on this engine's device (JAX batched.py:98-103)
         super().__init__(bam_paths, fasta_path, params, libraries,
@@ -102,8 +130,13 @@ class BatchedWindowEngine(WindowEngine):
             raise ValueError(f"dtype must be float32 or float64, got {dtype}")
         self.device_folds = (self.np_dtype == np.float32
                              if device_folds is None else device_folds)
-        self.device_em = (self.np_dtype == np.float32
-                          if device_em is None else device_em)
+        # under remote staging the pooled windows take the host EM: the
+        # device is the server's, and this process has none (JAX
+        # batched.py:292-294)
+        self.device_em = remote is None and (
+            self.np_dtype == np.float32 if device_em is None else device_em)
+        self.mesh = mesh
+        self.remote = remote
         self._rescue_reported = False
 
     # ------------------------------------------------------------------
@@ -233,7 +266,9 @@ class BatchedWindowEngine(WindowEngine):
 
     def _stage_slab(self, slab: List[dict]):
         """Host pack (+ call tables on the device-call route) + slab
-        program enqueue.  Returns (route, slab, pks, kmap_of, planes)."""
+        program enqueue (or, under remote staging, its dispatch to the
+        device server).  Returns (route, slab, pks, kmap_of, planes);
+        planes is a RemoteHandle under remote staging."""
         p = self.params
         H_max = max(max(h.size() for h in e["haps"]) for e in slab)
         L_max = max(max(r.size() for r in e["reads"]) for e in slab)
@@ -274,16 +309,29 @@ class BatchedWindowEngine(WindowEngine):
             if use_dev:
                 vtab, callmeta, kmap_of = self._call_meta(slab, merged)
         with self.stats.stage("slab_dispatch"):
+            if self.remote is not None:
+                payload = dict(merged=merged, exact_ties=self.exact_ties)
+                if use_dev:
+                    payload.update(vtab=vtab, callmeta=callmeta,
+                                   max_mismatch=p.obs_params.max_mismatch,
+                                   device_folds=self.device_folds)
+                kind = "dense" if dense else "stats" if use_dev else "compact"
+                handle = self.remote.dispatch(kind, payload)
+                if use_dev:
+                    return "stats", slab, pks, kmap_of, handle
+                return "decode", slab, pks, None, handle
             if dense:
                 return ("decode", slab, pks, None,
                         run_packed(merged, self.exact_ties, self.device))
             if not use_dev:
-                return ("decode", slab, pks, None,
-                        run_slab_decode(merged, self.exact_ties, self.device))
+                planes = (run_slab_decode(merged, self.exact_ties, self.device)
+                          if self.mesh is None else run_slab_decode_sharded(
+                              merged, self.exact_ties, self.mesh))
+                return "decode", slab, pks, None, planes
             planes = run_slab_stats(
                 merged, vtab, callmeta, p.obs_params.max_mismatch,
                 exact_ties=self.exact_ties, device_folds=self.device_folds,
-                device=self.device)
+                device=self.device, mesh=self.mesh)
         return "stats", slab, pks, kmap_of, planes
 
     def _call_meta(self, slab: List[dict], merged: dict):
@@ -348,10 +396,23 @@ class BatchedWindowEngine(WindowEngine):
         window order."""
         p = batch["params"]
         liks_by_idx = dict(batch["rescued"])
+        items = batch["items"]
         with self.stats.stage("device_hmm"):
-            for item in batch["items"]:
+            fetched = [None] * len(items)
+            if self.remote is not None and items:
+                # every slab of the batch in ONE round trip (JAX
+                # batched.py:726-749); if that raises, each slab is
+                # fetched again on its own below, so only a failing slab
+                # is rescued
                 try:
-                    self._finish_slab(item, liks_by_idx, p)
+                    with self.stats.stage("slab_fetch"):
+                        fetched = self.remote.fetch_pytrees(
+                            [item[4] for item in items])
+                except Exception:
+                    pass
+            for item, f in zip(items, fetched):
+                try:
+                    self._finish_slab(item, liks_by_idx, p, f)
                 except Exception:
                     liks_by_idx.update(self._rescue_slab(item[1]))
         if p.estimate_hap_freqs and self.device_em:
@@ -386,17 +447,25 @@ class BatchedWindowEngine(WindowEngine):
         line.set("rpos", e["right_pos"])
         glf_data.output(line)
 
-    def _finish_slab(self, item, liks_by_idx: dict, params) -> None:
-        """Fetch one slab's planes and build each window's liks: (LiksView,
-        None) on the full-decode route, (LiksStats, fold results) on the
-        device-call route."""
-        route, slab, pks, kmap_of, planes = item
-        if route == "decode":
-            self._finish_slab_decode(slab, pks, planes, liks_by_idx, params)
-            return
+    def _fetch(self, planes) -> list:
+        """One slab's planes as numpy arrays."""
         with self.stats.stage("slab_fetch"):
-            f_plane, m_log_bq, i_plane, b_plane, base, site = [
-                t.cpu().numpy() for t in planes]
+            if self.remote is not None:
+                return list(self.remote.fetch_pytrees([planes])[0])
+            return [t.cpu().numpy() for t in planes]
+
+    def _finish_slab(self, item, liks_by_idx: dict, params,
+                     fetched=None) -> None:
+        """Fetch one slab's planes (unless `fetched` holds them) and build
+        each window's liks: (LiksView, None) on the full-decode route,
+        (LiksStats, fold results) on the device-call route."""
+        route, slab, pks, kmap_of, planes = item
+        if fetched is None:
+            fetched = self._fetch(planes)
+        if route == "decode":
+            self._finish_slab_decode(slab, pks, fetched, liks_by_idx, params)
+            return
+        f_plane, m_log_bq, i_plane, b_plane, base, site = fetched
         st = dict(ll=f_plane[:, 0], ll_off=f_plane[:, 1],
                   ll_on=f_plane[:, 2], m_log_bq=m_log_bq,
                   fb=i_plane[:, 0], lb=i_plane[:, 1], n_bqt=i_plane[:, 2],
@@ -428,13 +497,11 @@ class BatchedWindowEngine(WindowEngine):
                 liks_by_idx[e["index"]] = (view, dev)
                 off += B
 
-    def _finish_slab_decode(self, slab, pks, planes, liks_by_idx,
+    def _finish_slab_decode(self, slab, pks, fetched, liks_by_idx,
                             params) -> None:
-        """Full-decode route: fetch the finish outputs, map_state
-        included, and decode each window's pairs on the host."""
-        with self.stats.stage("slab_fetch"):
-            ll, off_hap, off_hap_hmq, ll_off, ll_on, map_state = [
-                t.cpu().numpy() for t in planes]
+        """Full-decode route: decode each window's pairs on the host from
+        the fetched finish outputs, map_state included."""
+        ll, off_hap, off_hap_hmq, ll_off, ll_on, map_state = fetched
         off = 0
         with self.stats.stage("slab_decode"):
             for e, pk in zip(slab, pks):

@@ -162,7 +162,8 @@ def pair_hmm_dp(H_pad, L_pad, numT, hap_len, read_len, b_mid, read_codes,
     if rc != 0:
         raise RuntimeError(f"pair_hmm_dp kernel launch failed: CUDA error "
                            f"{rc}")
-    pair_hmm_dp.launches += 1
+    with _LOCK:  # the hostshard device server launches from many threads
+        pair_hmm_dp.launches += 1
     return amid, bmid, btf, btb
 
 

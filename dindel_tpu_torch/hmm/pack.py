@@ -3,8 +3,7 @@
 JAX-free counterpart of the packing half of ``dindel_tpu/hmm/batch.py``
 (``_round_up`` :50, ``compute_obs_mid`` :383, ``pack_pairs_compact``
 :463, ``merge_compact`` :584, ``pad_compact`` :609,
-``expand_compact_host`` :1018, ``pack_pairs`` :1155) and of
-``synth_windows`` (``parallel/mesh.py:149``).  The numpy code is the
+``expand_compact_host`` :1018, ``pack_pairs`` :1155).  The numpy code is the
 same; tests/test_torch_host.py and tests/test_torch_dense.py hold every
 output byte-equal to the original.  ``tables_to_device`` is new: it
 turns the numpy slab tables into tensors on an explicit device, which is
@@ -20,7 +19,6 @@ None there and the caller packs the dense per-pair form with
 from __future__ import annotations
 
 import math
-import random
 from typing import List
 
 import numpy as np
@@ -462,35 +460,4 @@ def tables_to_device(pk: dict, device) -> dict:
         a = np.ascontiguousarray(pk[k])
         t = torch.from_numpy(a)
         out[k] = t.to(device=device, dtype=dt if dt is not None else t.dtype)
-    return out
-
-
-def synth_windows(n_windows: int, nh: int, nr: int, H: int, L: int,
-                  seed: int = 0):
-    """Small synthetic windows for tests and benchmarks (the same
-    generator as dindel_tpu.parallel.mesh.synth_windows)."""
-    rng = random.Random(seed)
-    out = []
-    for w in range(n_windows):
-        ref = "".join(rng.choice("ACGT") for _ in range(H))
-        haps = [Haplotype(seq=ref)]
-        for _ in range(nh - 1):
-            k = rng.randrange(5, H - 8)
-            if rng.random() < 0.5:
-                haps.append(Haplotype(seq=ref[:k] + ref[k + rng.randint(1, 3):]))
-            else:
-                ins = "".join(rng.choice("ACGT") for _ in range(rng.randint(1, 3)))
-                haps.append(Haplotype(seq=ref[:k] + ins + ref[k:]))
-        reads = []
-        for _ in range(nr):
-            src = haps[rng.randrange(nh)].seq
-            start = rng.randrange(0, max(1, len(src) - L))
-            seq = src[start:start + L]
-            if len(seq) < L:
-                seq = seq + "".join(rng.choice("ACGT") for _ in range(L - len(seq)))
-            reads.append(Read(seq=seq,
-                              qual=np.full(L, 0.999),
-                              map_qual=1 - 1e-5,
-                              pos_stat_first=float(start)))
-        out.append((haps, reads, 0))
     return out

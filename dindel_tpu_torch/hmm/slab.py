@@ -11,9 +11,14 @@ returns the finish outputs, map_state included, for the host decode
 (hmm/liks.py LiksView).  ``run_packed`` is the counterpart of
 ``dindel_tpu.hmm.batch.run_packed`` (batch.py:413-443): one dense pk
 (pack.pack_pairs: a streaming window, or a batched engine's insert-prior
-slab) in, the same outputs as ``run_slab_decode`` out.  The (L_pad-1,
-B, S_half) backpointer planes never leave any program; the results stay
-on the device until the caller fetches them."""
+slab) in, the same outputs as ``run_slab_decode`` out.
+``run_slab_decode_sharded`` is the counterpart of
+``run_packed_compact_sharded`` (batch.py:932-1015): the compact program
+with its pair axis split over the devices of a ``parallel.mesh.Mesh``;
+``run_slab_stats(mesh=...)`` shards the same part and runs the stats and
+folds on the gathered outputs.  The (L_pad-1, B, S_half) backpointer
+planes never leave any program; the results stay on the device until the
+caller fetches them."""
 
 from __future__ import annotations
 
@@ -24,15 +29,17 @@ from .dp_kernel import pair_hmm_dp
 from .dp_ref import dp_bounds
 from .expand import expand_compact
 from .finish import finish
-from .pack import compute_obs_mid, tables_to_device
+from .pack import _round_up, compute_obs_mid, tables_to_device
 from .stats import pair_stats
 from ..infer.device_call import window_call
 
 
 def run_slab_stats(pk: dict, vtab: dict, callmeta: dict, max_mismatch: int,
-                   exact_ties: bool, device_folds: bool, device):
+                   exact_ties: bool, device_folds: bool, device, mesh=None):
     """Run one compact slab (pk from pack.pad_compact(merge_compact(..)))
-    on `device`.
+    on `device`; with a `mesh`, expand -> DP -> finish run sharded over
+    it (run_slab_decode_sharded) and the stats and folds on `device`
+    (the engine passes the mesh's first device).
 
     vtab: per-hap variant flank tables aligned with the compact hap
     tables (v_left_h/v_right_h (rows, V) int32, v_isdel_h/v_valid_h
@@ -50,8 +57,12 @@ def run_slab_stats(pk: dict, vtab: dict, callmeta: dict, max_mismatch: int,
                          when device_folds is False (host folds)."""
     H_pad, L_pad = pk["H_pad"], pk["L_pad"]
     t = tables_to_device(pk, device)
-    ll, off_hap, off_hap_hmq, ll_off, ll_on, map_state = _core(
-        pk, t, exact_ties)
+    if mesh is None:
+        out = _core(pk, t, exact_ties, _bounds(pk))
+    else:
+        out = [o.to(device)
+               for o in run_slab_decode_sharded(pk, exact_ties, mesh)]
+    ll, off_hap, off_hap_hmq, ll_off, ll_on, map_state = out
     vt = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
           for k, v in vtab.items()}
     V = vtab["v_left_h"].shape[1]
@@ -87,7 +98,35 @@ def run_slab_decode(pk: dict, exact_ties: bool, device):
     int32.  Columns at and past a pair's read_len are not defined
     (finish.py); every consumer masks them."""
     t = tables_to_device(pk, device)
-    return _narrow_map_state(_core(pk, t, exact_ties), pk["H_pad"])
+    return _narrow_map_state(_core(pk, t, exact_ties, _bounds(pk)),
+                             pk["H_pad"])
+
+
+_PAIR_KEYS = ("hap_idx", "read_idx", "hap_len", "read_len", "b_mid")
+
+
+def run_slab_decode_sharded(pk: dict, exact_ties: bool, mesh):
+    """run_slab_decode with the slab's pair axis split over every device
+    of `mesh` (dp-major): padded to a multiple of the device count with
+    clones of the last real pair, cut into contiguous shards; the read
+    and hap tables are replicated to every shard's device.  Each shard
+    runs expand -> DP -> finish on its own device with the whole slab's
+    DP bounds (so it computes exactly what the single-device program
+    computes for its pairs); the outputs are moved to the mesh's first
+    device, concatenated and sliced back to the slab's pairs."""
+    devs = mesh.flat
+    B = pk["hap_idx"].shape[0]
+    per = _round_up(B, len(devs)) // len(devs)
+    bounds = _bounds(pk)
+    parts = []
+    for s, dev in enumerate(devs):
+        rows = np.minimum(np.arange(s * per, (s + 1) * per), B - 1)
+        shard = dict(pk, **{k: np.asarray(pk[k])[rows] for k in _PAIR_KEYS})
+        out = _narrow_map_state(
+            _core(shard, tables_to_device(shard, dev), exact_ties, bounds),
+            pk["H_pad"])
+        parts.append([o.to(mesh.first) for o in out])
+    return tuple(torch.cat(col)[:B] for col in zip(*parts))
 
 
 def run_packed(pk: dict, exact_ties: bool, device):
@@ -109,7 +148,7 @@ def run_packed(pk: dict, exact_ties: bool, device):
         up(pk["read_codes"], torch.uint8), up(pk["hap_codes"], torch.uint8),
         up(pk["eq"]), up(pk["uq"]), up(pk["lpe"]), up(pk["lpn"]),
         pk["scalars"], exact_ties=exact_ties,
-        bounds=dp_bounds(pk["read_len"], pk["b_mid"], L_pad))
+        bounds=_bounds(pk))
     out = finish(H_pad, L_pad, numT, b_mid, hap_len, alpha_mid, beta_mid,
                  up(compute_obs_mid(pk)), up(pk["prior_rmq"]),
                  up(pk["prior_hmq"]), btf, btb, exact_ties=exact_ties)
@@ -123,8 +162,13 @@ def _narrow_map_state(out, H_pad):
     return out
 
 
-def _core(pk: dict, t: dict, exact_ties: bool):
-    """expand -> K1 -> finish on the tables `t` (pack.tables_to_device)."""
+def _bounds(pk: dict):
+    return dp_bounds(pk["read_len"], pk["b_mid"], pk["L_pad"])
+
+
+def _core(pk: dict, t: dict, exact_ties: bool, bounds):
+    """expand -> K1 -> finish on the tables `t` (pack.tables_to_device),
+    the DP over the anchor bounds `bounds` (dp_ref.dp_bounds)."""
     H_pad, L_pad, numT = pk["H_pad"], pk["L_pad"], pk["numT"]
     (read_codes, eq, uq, hap_codes, lpe, lpn, prior_rmq, prior_hmq,
      obs_mid) = expand_compact(
@@ -133,8 +177,7 @@ def _core(pk: dict, t: dict, exact_ties: bool):
     alpha_mid, beta_mid, btf, btb = pair_hmm_dp(
         H_pad, L_pad, numT, t["hap_len"], t["read_len"], t["b_mid"],
         read_codes, hap_codes, eq, uq, lpe, lpn, pk["scalars"],
-        exact_ties=exact_ties,
-        bounds=dp_bounds(pk["read_len"], pk["b_mid"], L_pad))
+        exact_ties=exact_ties, bounds=bounds)
     return finish(H_pad, L_pad, numT, t["b_mid"], t["hap_len"], alpha_mid,
                   beta_mid, obs_mid, prior_rmq, prior_hmq, btf, btb,
                   exact_ties=exact_ties)

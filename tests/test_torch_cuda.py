@@ -2,7 +2,9 @@
 PyTorch version, and the slab programs (both routes), the dense program
 and the per-window backend at a streaming window's shape (float64 exact
 and float32 fast), the pooled VB-EM and both engines on CUDA against
-the CPU.  Every test is marked ``cuda`` and skips without a CUDA device
+the CPU; the sharded slab programs on a mesh of the card (and of two
+cards where there are two) against one device, and the hostshard device
+server on the card against one process.  Every test is marked ``cuda`` and skips without a CUDA device
 (the kernel has no CPU mode).  This file imports no JAX, so it also runs
 on a GPU host that has none; tests/conftest.py imports JAX, hence
 
@@ -29,11 +31,14 @@ from dindel_tpu_torch.hmm.expand import expand_compact
 from dindel_tpu_torch.hmm.liks import LiksView
 from dindel_tpu_torch.hmm.pack import (merge_compact, pack_pairs,
                                        pack_pairs_compact, pad_compact,
-                                       synth_windows, tables_to_device)
+                                       tables_to_device)
 from dindel_tpu_torch.hmm.slab import (run_packed, run_slab_decode,
+                                       run_slab_decode_sharded,
                                        run_slab_stats)
 from dindel_tpu_torch.infer.device_em import run_batched_em
 from dindel_tpu_torch.io.bam import BamReader
+from dindel_tpu_torch.parallel.hostshard import run_hostshard
+from dindel_tpu_torch.parallel.mesh import make_mesh, synth_windows
 from dindel_tpu_torch.pipeline.windows import make_windows
 from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
 
@@ -122,9 +127,7 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         pair_hmm_dp(*args, bounds=bounds)
 
 
-@pytest.mark.parametrize("exact_ties", [True, False])
-def test_run_slab_stats_card_equals_cpu(cuda, exact_ties):
-    pk = _slab(np.float32)
+def _vtab_cm(pk):
     n = pk["hap_codes_h"].shape[0]
     rng = np.random.RandomState(5)
     left = rng.randint(-4, 50, size=(n, 4)).astype(np.int32)
@@ -136,6 +139,13 @@ def test_run_slab_stats_card_equals_cpu(cuda, exact_ties):
     cm = dict(W=8, NH=4, S=4, NR=64, index_map=np.zeros((8, 4, 64), np.int32),
               nr_w=np.zeros(8, np.int32),
               pair_pr=np.zeros((8, 4, 10), np.float32))
+    return vtab, cm
+
+
+@pytest.mark.parametrize("exact_ties", [True, False])
+def test_run_slab_stats_card_equals_cpu(cuda, exact_ties):
+    pk = _slab(np.float32)
+    vtab, cm = _vtab_cm(pk)
     cpu = run_slab_stats(pk, vtab, cm, 2, exact_ties, False, "cpu")
     gpu = run_slab_stats(pk, vtab, cm, 2, exact_ties, False, cuda)
     for c, g in zip(cpu[:4], gpu[:4]):
@@ -311,3 +321,115 @@ def test_streaming_engine_card_equals_cpu(cuda, tmp_path, backend):
     assert pair_hmm_dp.launches - n0 >= 2
     assert "dip.map" in glfs[0]
     assert glfs[0] == glfs[1]
+
+
+def _sharded_equals_single(devices, exact_ties):
+    """Both compact routes sharded over a 2x2 (or 2x1) mesh of `devices`
+    against one device: the DP kernel launched once per shard, outputs
+    equal (map_state on each pair's read columns)."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    mesh = make_mesh(len(devices) // 2, 2, devices)
+    pk = _slab(np.float32)
+    want = run_slab_decode(pk, exact_ties, mesh.first)
+    n0 = pair_hmm_dp.launches
+    got = run_slab_decode_sharded(pk, exact_ties, mesh)
+    torch.cuda.synchronize()
+    assert pair_hmm_dp.launches == n0 + mesh.size
+    valid = (torch.arange(pk["L_pad"], device=mesh.first)[None, :]
+             < torch.from_numpy(pk["read_len"]).to(mesh.first)[:, None])
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert g.device == mesh.first and w.dtype == g.dtype
+        if i == 5:
+            w, g = w.masked_fill(~valid, -1), g.masked_fill(~valid, -1)
+        assert torch.equal(w, g)
+    vtab, cm = _vtab_cm(pk)
+    want = run_slab_stats(pk, vtab, cm, 2, exact_ties, False, mesh.first)
+    got = run_slab_stats(pk, vtab, cm, 2, exact_ties, False, mesh.first,
+                         mesh=mesh)
+    for w, g in zip(want[:4], got[:4]):
+        assert torch.equal(w, g)
+
+
+@pytest.mark.parametrize("exact_ties", [True, False])
+def test_sharded_slab_on_one_card_equals_single(cuda, exact_ties):
+    _sharded_equals_single([torch.device("cuda", 0)] * 4, exact_ties)
+
+
+def test_sharded_slab_on_two_cards_equals_single(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    _sharded_equals_single([torch.device("cuda", 0), torch.device("cuda", 1)],
+                           False)
+
+
+def test_hostshard_on_card_equals_one_process(cuda, tmp_path):
+    """Two staging processes feed this process's card: the merged GLF
+    equals one engine's on the card over the same window files, the
+    kernel ran here, and no staging process initialized CUDA or rescued
+    a slab."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    fa, bam = simulate(str(tmp_path / "sim"),
+                       [PlantedVariant(pos=550 + i * 620, var="-AC",
+                                       genotype=1) for i in range(4)],
+                       SimConfig(ref_len=560 + 4 * 620, coverage=15,
+                                 read_len=70), seed=23)
+    var_file, _ = get_candidates(bam, str(tmp_path / "cand"), fa)
+    win_files = make_windows(var_file, str(tmp_path / "win"),
+                             variants_per_file=2)
+    params = Parameters()
+    params.do_diploid = True
+    params.file_name = str(tmp_path / "seq")
+    eng = BatchedWindowEngine([bam], fa, params, device="cuda")
+    seq = []
+    for i, wf in enumerate(win_files):
+        eng.detect_indels(wf, str(tmp_path / f"seq.{i}"))
+        lines = open(tmp_path / f"seq.{i}").read().splitlines(keepends=True)
+        seq += lines if i == 0 else lines[1:]
+    eng.close()
+    params.file_name = str(tmp_path / "shard")
+    stats = {}
+    n0 = pair_hmm_dp.launches
+    run_hostshard([bam], fa, params, win_files,
+                  str(tmp_path / "shard.glf.txt"), n_procs=2,
+                  stats_out=stats, device="cuda")
+    assert pair_hmm_dp.launches > n0
+    for st in stats["per_proc"]:
+        assert st["cuda_initialized"] is False
+        assert st["stage_seconds"].get("slab_rescues", 0) == 0
+    got = open(tmp_path / "shard.glf.txt").read()
+    assert "dip.map" in got
+    assert got == "".join(seq)
+
+
+def test_engine_mesh_on_four_cards_equals_single(cuda, tmp_path):
+    """The batched engine on a 2x2 mesh of four distinct cards writes the
+    single-card GLF, launching the kernel once per shard of every slab."""
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    fa, bam = simulate(str(tmp_path / "sim"),
+                       [PlantedVariant(pos=600, var="-ACG", genotype=1),
+                        PlantedVariant(pos=1400, var="+TT", genotype=2)],
+                       SimConfig(ref_len=2000, coverage=12, read_len=50),
+                       seed=9)
+    var_file, _ = get_candidates(bam, str(tmp_path / "cand"), fa)
+    wf = make_windows(var_file, str(tmp_path / "win"))[0]
+    glfs, launches = [], []
+    for tag, mesh in (("single", None), ("mesh", make_mesh(2, 2))):
+        params = Parameters()
+        params.do_diploid = True
+        params.file_name = str(tmp_path / tag)
+        eng = BatchedWindowEngine([bam], fa, params, device="cuda",
+                                  mesh=mesh, max_pairs_per_slab=2048)
+        n0 = pair_hmm_dp.launches
+        eng.detect_indels(wf, params.file_name + ".glf.txt")
+        eng.close()
+        assert eng.stats.stage_seconds.get("slab_rescues", 0) == 0
+        launches.append(pair_hmm_dp.launches - n0)
+        glfs.append(open(params.file_name + ".glf.txt").read())
+    assert "dip.map" in glfs[0]
+    assert glfs[0] == glfs[1]
+    assert launches[0] > 0 and launches[1] == 4 * launches[0]

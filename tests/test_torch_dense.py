@@ -47,10 +47,10 @@ from dindel_tpu_torch.engine.batched import BatchedWindowEngine
 from dindel_tpu_torch.engine.reads import WindowError
 from dindel_tpu_torch.hmm.liks import decode_liks_view
 from dindel_tpu_torch.hmm.pack import (compute_obs_mid, expand_compact_host,
-                                       pack_pairs, pack_pairs_compact,
-                                       synth_windows)
+                                       pack_pairs, pack_pairs_compact)
 from dindel_tpu_torch.hmm.slab import run_packed
 from dindel_tpu_torch.model import Library, LibraryCollection
+from dindel_tpu_torch.parallel.mesh import synth_windows
 
 torch.set_num_threads(1)
 

@@ -4,11 +4,12 @@ GLF text must be byte-identical to the JAX batched engine: float32 with
 fast ties (the shipped configuration) against the JAX XLA float32
 engine, and float64 with exact ties against the JAX float64 engine, both
 with host folds.  The device folds must give the same VCF.  The CLI
-makes the golden call and raises NotImplementedError for --mesh and
---stageProcs, the two options the port does not have; --doPooled,
---outputRealignedBAM and --opl run end to end on the CPU (the streaming
-engine, --faster and --insertPrior: tests/test_torch_streaming.py,
-tests/test_torch_faster.py, tests/test_torch_dense.py)."""
+makes the golden call and refuses --mesh and --stageProcs outside the
+batched engine; --doPooled, --outputRealignedBAM and --opl run end to
+end on the CPU (the streaming engine, --faster and --insertPrior:
+tests/test_torch_streaming.py, tests/test_torch_faster.py,
+tests/test_torch_dense.py; --mesh and --stageProcs:
+tests/test_torch_parallel.py, tests/test_torch_hostshard.py)."""
 
 import numpy as np
 import pytest
@@ -233,9 +234,18 @@ def test_cli_opl_cpu(golden_sim):
 
 
 @pytest.mark.parametrize("extra", [["--mesh", "2x1"], ["--stageProcs", "2"]])
-def test_cli_unsupported_raises(extra):
-    argv = _indels("ref.fa", "reads.bam", "win.txt", "out", "--device",
-                   "cpu") + extra
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(argv)
+def test_cli_unsupported_raises(golden_sim, extra):
+    """--mesh and --stageProcs serve the batched engine only: with the
+    streaming engine, or with each other, they raise."""
+    tmp, fa, bam, wf = golden_sim
+    streaming = ["--analysis", "indels", "--doDiploid", "--bamFile", bam,
+                 "--ref", fa, "--varFile", wf, "--outputFile",
+                 str(tmp / "refused"), "--device", "cpu"]
+    with pytest.raises(ValueError, match="need --engine batched"):
+        cli.main(streaming + extra)
+    other = ["--stageProcs", "2"] if extra[0] == "--mesh" else ["--mesh",
+                                                                 "2x1"]
+    with pytest.raises(ValueError, match="exclusive"):
+        cli.main(_indels(fa, bam, wf, str(tmp / "refused"), "--device",
+                         "cpu", *extra, *other))
 

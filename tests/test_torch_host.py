@@ -31,6 +31,7 @@ from dindel_tpu_torch.engine.window import check_guards_and_on_hap
 from dindel_tpu_torch.hmm import pack
 from dindel_tpu_torch.hmm.liks import LiksStats
 from dindel_tpu_torch.infer import device_call as tdc
+from dindel_tpu_torch.parallel import mesh
 from test_device_call import _sim
 from test_torch_engine import no_slab_rescues  # noqa: F401 (autouse)
 
@@ -194,7 +195,7 @@ def test_liks_stats_and_guards_equal(staged):
 def test_synth_windows_equal():
     for (jh, jr, js), (th, tr, ts) in zip(
             jax_synth(2, nh=3, nr=7, H=50, L=20, seed=4),
-            pack.synth_windows(2, nh=3, nr=7, H=50, L=20, seed=4)):
+            mesh.synth_windows(2, nh=3, nr=7, H=50, L=20, seed=4)):
         assert js == ts
         assert [h.seq for h in jh] == [h.seq for h in th]
         assert [(r.seq, r.map_qual, r.pos_stat_first) for r in jr] == \

@@ -5,8 +5,10 @@ An AST scan of every module of the port and of chip_smoke.py rejects any
 such import, at top level or inside a function; a subprocess with both
 blocked by a ``sys.meta_path`` finder drives every verb of the port's CLI
 on a small sim, the diploid, pooled, full-decode and dense insert-prior
-``indels`` paths of the batched engine, the default streaming engine and
-``--faster`` on the CPU included."""
+``indels`` paths of the batched engine, its ``--mesh`` and
+``--stageProcs`` runs, the default streaming engine and ``--faster`` on
+the CPU included (the staging processes ``--stageProcs`` spawns start
+without the blocking finder; the AST scan covers their code)."""
 
 import ast
 import subprocess
@@ -121,6 +123,17 @@ _BLOCKED_RUN = textwrap.dedent("""
         "--windowFilePrefix", "win")
     glf = indels("dip", "--doDiploid")
     assert "dip.map" in glf, glf
+    # the batched engine sharded over a 2x2 mesh of the CPU, and fed by two
+    # staging processes over the window file cut in two
+    assert indels("mesh", "--doDiploid", "--mesh", "2x2") == glf
+    lines = open("win.1.txt").read().splitlines(keepends=True)
+    open("half1.txt", "w").writelines(lines[:len(lines) // 2])
+    open("half2.txt", "w").writelines(lines[len(lines) // 2:])
+    run("--analysis", "indels", "--engine", "batched", "--device", "cpu",
+        "--hmmBackend", "pallas", "--bamFile", bam, "--ref", fa,
+        "--varFile", "half1.txt,half2.txt", "--outputFile", "staged",
+        "--doDiploid", "--stageProcs", 2)
+    assert "dip.map" in open("staged.glf.txt").read()
     open("dip_glfs.txt", "w").write("dip.glf.txt\\n")
     run("--analysis", "mergeOutputDiploid", "--inputFiles", "dip_glfs.txt",
         "--ref", fa, "--outputFile", "calls.vcf")

@@ -18,10 +18,11 @@ from dindel_tpu.hmm.batch import (_expand_compact, _pair_stats,
                                   run_slab_stats_fused)
 from dindel_tpu.infer.device_call import _window_call, pair_enum
 from dindel_tpu_torch.hmm.expand import expand_compact
-from dindel_tpu_torch.hmm.pack import synth_windows, tables_to_device
+from dindel_tpu_torch.hmm.pack import tables_to_device
 from dindel_tpu_torch.hmm.slab import run_slab_stats
 from dindel_tpu_torch.hmm.stats import pair_stats
 from dindel_tpu_torch.infer.device_call import window_call
+from dindel_tpu_torch.parallel.mesh import synth_windows
 
 torch.set_num_threads(1)
 

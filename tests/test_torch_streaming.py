@@ -42,7 +42,7 @@ from dindel_tpu_torch.config import ObservationModelParameters, Parameters
 from dindel_tpu_torch.engine.batched import BatchedWindowEngine
 from dindel_tpu_torch.engine.window import WindowEngine
 from dindel_tpu_torch.hmm.batch import BatchedPairHMM
-from dindel_tpu_torch.hmm.pack import synth_windows
+from dindel_tpu_torch.parallel.mesh import synth_windows
 from dindel_tpu_torch.pipeline.run_parallel import run_and_merge_diploid
 from test_torch_engine import no_slab_rescues  # noqa: F401 (autouse)
 
