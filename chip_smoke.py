@@ -77,7 +77,8 @@ Phases, in order; any failure exits non-zero:
    staging processes and two repeats: merged GLFs byte-equal to one
    engine running the four files in sequence; the cold wall, the warm
    windows/s, the server's enqueue and fetch seconds, and each staging
-   process's stage seconds and CUDA state (never initialized).
+   process's stage seconds, rescues and CUDA state (never initialized),
+   in both runs.
 
 Every engine this process closes, every shard worker's and every
 staging process's must have rescued no slab (a rescue would hide a
@@ -560,6 +561,7 @@ def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
     import numpy as np
     from dindel_tpu_torch.config import Parameters
     from dindel_tpu_torch.engine.batched import BatchedWindowEngine
+    from dindel_tpu_torch.parallel.hostshard import merge_glf
 
     params = Parameters()
     params.do_diploid = True
@@ -584,10 +586,7 @@ def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
         eng.close()
     wall = time.perf_counter() - t0
     if len(parts) > 1:
-        with open(glf, "w") as out:
-            for i, part in enumerate(parts):
-                lines = part.read_text().splitlines(keepends=True)
-                out.writelines(lines if i == 0 else lines[1:])
+        merge_glf([str(part) for part in parts], str(glf))
     return wall, eng.stats.summary()
 
 
@@ -1244,9 +1243,17 @@ def hostshard_phase(d: Path, fa, bam, wins, device):
     cli_wall = indels_cli(fa, bam, ",".join(str(f) for f in files),
                           d / "cli", device, "--doDiploid", "--stageProcs", 2)
     cli_same = (d / "cli.glf.txt").read_bytes() == seq
+    # the CLI's staging processes, read from the stats files they leave
+    # beside the GLF
+    cli_procs = [json.loads((d / f"cli.glf.txt.err{s}.stats").read_text())
+                 for s in range(2)]
+    cli_flags = [(p["cuda_initialized"],
+                  p["stage_seconds"].get("slab_rescues", 0))
+                 for p in cli_procs]
     log(f"[hostshard] CLI --stageProcs 2 (cold: spawn, imports, staging): "
         f"{n} windows in {cli_wall:.3f} s = {n / cli_wall:.6g} windows/s; "
-        f"GLF byte-identical to one process {cli_same}")
+        f"GLF byte-identical to one process {cli_same}; staging processes' "
+        f"(cuda_initialized, slab_rescues) {cli_flags}")
     params = Parameters()
     params.do_diploid = True
     params.file_name = str(d / "hs")
@@ -1280,9 +1287,9 @@ def hostshard_phase(d: Path, fa, bam, wins, device):
         log(f"[hostshard] staging process {i}: windows_ok "
             f"{pst['windows_ok']}, cuda_initialized "
             f"{pst['cuda_initialized']}, stage seconds {stages}")
-    if (not same or not cli_same or launches <= 0 or any(
-            pst["cuda_initialized"] or pst["stage_seconds"].get(
-                "slab_rescues", 0) for pst in procs)):
+    if (not same or not cli_same or launches <= 0 or stats["slab_rescues"]
+            or any(pst["cuda_initialized"] or pst["stage_seconds"].get(
+                "slab_rescues", 0) for pst in procs + cli_procs)):
         raise SystemExit("hostshard phase failed: GLF/launches/CUDA in a "
                          "staging process/rescues")
     return launches

@@ -28,9 +28,11 @@ Counterpart of ``dindel_tpu.engine.batched.BatchedWindowEngine``
 
 A slab whose device phase raises is re-scored window by window through
 the per-window backend (float64, exact ties, the DP kernel on this
-engine's device: WindowEngine.compute_likelihoods); every rescue is
-counted in stats.stage_seconds["slab_rescues"] and its first cause is
-printed to stderr.  --faster runs the streaming engine (the CLI routes
+engine's device, or under ``remote`` on the device server's:
+WindowEngine.compute_likelihoods); every rescue is counted in
+stats.stage_seconds["slab_rescues"] and its first cause is printed to
+stderr.  A rescue never runs the DP anywhere else: if the device fails
+again, the run ends.  --faster runs the streaming engine (the CLI routes
 it there) and raises ValueError here.
 
 With ``mesh`` (a parallel.mesh.Mesh, or (n_dp, n_rp), --mesh) the
@@ -40,7 +42,7 @@ the device EM and the rescue run on the mesh's first device.  With
 ``remote`` (a parallel.hostshard.DeviceProxy, --stageProcs) this engine
 stages on the host and ships each slab's numpy tables to the device
 server, which runs the slab program; the batch's results come back in
-one round trip."""
+one round trip, and a rescued window's dense program runs there too."""
 
 from __future__ import annotations
 
@@ -56,8 +58,8 @@ from ..device import resolve_device
 from ..hmm.liks import LiksStats, decode_liks_view
 from ..hmm.pack import (_round_up, merge_compact, pack_pairs,
                         pack_pairs_compact, pad_compact)
-from ..hmm.slab import (run_packed, run_slab_decode, run_slab_decode_sharded,
-                        run_slab_stats)
+from ..hmm.slab import (DENSE_KEYS, run_packed, run_slab_decode,
+                        run_slab_decode_sharded, run_slab_stats)
 from ..infer.device_call import (build_call_tables, diploid_glf_dev,
                                  filter_haplotypes_dev, host_window_folds,
                                  pair_enum)
@@ -70,12 +72,6 @@ from ..parallel.mesh import Mesh, make_mesh
 from ..variants import read_window_file
 from .reads import ReadBuffer, WindowError, get_reads
 from .window import WindowEngine, check_guards_and_on_hap
-
-
-# the dense pk arrays a slab's run_packed consumes (the JAX package's
-# lpeV/lpnV serve only its XLA DP and stay out of the merge)
-_DENSE_KEYS = ("hap_len", "read_len", "b_mid", "read_codes", "hap_codes",
-               "eq", "uq", "lpe", "lpn", "prior_rmq", "prior_hmq")
 
 
 class BatchedWindowEngine(WindowEngine):
@@ -95,8 +91,8 @@ class BatchedWindowEngine(WindowEngine):
     mesh (a Mesh, or (n_dp, n_rp) built on `device`'s type) shards the
     compact slab programs over its devices and makes its first device
     the engine's device.  remote (a hostshard.DeviceProxy) runs every
-    slab program in the device server; device EM is then off.  The two
-    are exclusive."""
+    slab program, and every rescued window's, in the device server;
+    device EM is then off.  The two are exclusive."""
 
     def __init__(self, bam_paths, fasta_path, params, libraries=None, *,
                  device="cuda", batch_windows: int = 128,
@@ -119,9 +115,11 @@ class BatchedWindowEngine(WindowEngine):
                                  else [dev] * (mesh[0] * mesh[1]))
             device = mesh.first
         # the per-window backend of the slab rescue: float64, exact ties,
-        # the DP kernel on this engine's device (JAX batched.py:98-103)
+        # the DP kernel on this engine's device (JAX batched.py:98-103),
+        # or under remote staging on the server's: this process has none
         super().__init__(bam_paths, fasta_path, params, libraries,
                          hmm_backend="jax", device=device)
+        self._batch_hmm.remote = remote
         self.batch_windows = batch_windows
         self.max_pairs_per_slab = max_pairs_per_slab
         self.exact_ties = exact_ties
@@ -288,7 +286,7 @@ class BatchedWindowEngine(WindowEngine):
                                   p.obs_params, self.np_dtype, H_pad=H_pad,
                                   L_pad=L_pad) for e in slab]
                 merged = {k: np.concatenate([pk[k] for pk in pks])
-                          for k in _DENSE_KEYS}
+                          for k in DENSE_KEYS}
                 merged.update(H_pad=H_pad, L_pad=L_pad, numT=pks[0]["numT"],
                               scalars=pks[0]["scalars"])
             else:
@@ -523,10 +521,12 @@ class BatchedWindowEngine(WindowEngine):
         """Slab-level fault isolation (JAX batched.py:672-702), called
         where a slab's staging, dispatch or fetch raised: each window of
         the slab is re-scored through the per-window backend (float64,
-        exact ties, the DP kernel on this engine's device), so one
-        pathological window cannot take down its slab-mates.  A window's
-        WindowError becomes its error row; anything else raised here (a
-        sticky CUDA error among them) ends the run.  Returns {window
+        exact ties, the DP kernel on this engine's device or, under
+        remote staging, one dense program per window on the server's), so
+        one pathological window cannot take down its slab-mates.  A
+        window's WindowError becomes its error row; anything else raised
+        here (a sticky CUDA error, a failed or lost server among them)
+        ends the run.  Returns {window
         index: (LiksView, None)}: rescued windows take the host
         callers."""
         with self.stats.lock:

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .parallel.mesh import dryrun_multichip  # noqa: F401  (re-exported)
+
 # the window's dense arrays fn takes, and their device dtypes (None:
 # the pack's float dtype)
 _ARGS = {"hap_len": torch.int32, "read_len": torch.int32,
@@ -57,8 +59,3 @@ def entry(device="cuda"):
                       exact_ties=True)
 
     return fn, tuple(example_args)
-
-
-def dryrun_multichip(n_devices: int, devices=None) -> None:
-    from .parallel.mesh import dryrun_multichip as _dryrun
-    _dryrun(n_devices, devices)

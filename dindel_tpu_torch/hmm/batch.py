@@ -17,7 +17,7 @@ from ..device import resolve_device
 from ..model import Haplotype, MLAlignment, Read
 from .liks import decode_liks_view
 from .pack import pack_pairs
-from .slab import run_packed
+from .slab import DENSE_KEYS, run_packed
 
 # --hmmBackend -> (dtype, exact_ties): 'jax' is the JAX package's float64
 # XLA DP with the exact EPS/TIE fold (its oracle-parity configuration),
@@ -27,14 +27,19 @@ BACKENDS = {"jax": (np.float64, True), "pallas": (np.float32, False)}
 
 class BatchedPairHMM:
     """Packs a window's pairs, runs them on `device` in one launch of the
-    DP kernel, converts back to MLAlignments (a LiksView)."""
+    DP kernel, converts back to MLAlignments (a LiksView).  With `remote`
+    (a parallel.hostshard.DeviceProxy) the packed pairs run as one dense
+    program on the device server's device instead, and `device` is
+    unused."""
 
     def __init__(self, params: ObservationModelParameters,
-                 dtype=np.float64, exact_ties: bool = True, device="cuda"):
+                 dtype=np.float64, exact_ties: bool = True, device="cuda",
+                 remote=None):
         self.params = params
         self.dtype = dtype
         self.exact_ties = exact_ties
         self.device = resolve_device(device)
+        self.remote = remote
 
     def compute(self, haps: List[Haplotype], reads: List[Read],
                 hap_start: int) -> List[List[MLAlignment]]:
@@ -44,6 +49,13 @@ class BatchedPairHMM:
         # bucket-16 padding for both backends: the JAX Pallas layout
         # (S_half and L_pad multiples of 128) serves only its TPU kernel
         pk = pack_pairs(haps, reads, hap_start, p, self.dtype)
-        out = [t.cpu().numpy()
-               for t in run_packed(pk, self.exact_ties, self.device)]
+        if self.remote is not None:
+            merged = {k: pk[k] for k in DENSE_KEYS + (
+                "H_pad", "L_pad", "numT", "scalars")}
+            handle = self.remote.dispatch(
+                "dense", dict(merged=merged, exact_ties=self.exact_ties))
+            out = self.remote.fetch_pytrees([handle])[0]
+        else:
+            out = [t.cpu().numpy()
+                   for t in run_packed(pk, self.exact_ties, self.device)]
         return decode_liks_view(haps, reads, pk, *out, p)

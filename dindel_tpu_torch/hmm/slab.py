@@ -129,11 +129,16 @@ def run_slab_decode_sharded(pk: dict, exact_ties: bool, mesh):
     return tuple(torch.cat(col)[:B] for col in zip(*parts))
 
 
+# the dense pk arrays run_packed consumes (the JAX package's lpeV/lpnV
+# serve only its XLA DP), besides H_pad, L_pad, numT and scalars
+DENSE_KEYS = ("hap_len", "read_len", "b_mid", "read_codes", "hap_codes",
+              "eq", "uq", "lpe", "lpn", "prior_rmq", "prior_hmq")
+
+
 def run_packed(pk: dict, exact_ties: bool, device):
     """Run one dense pk on `device`: K1 on the per-pair arrays, then
     finish with the host's obs_mid (pack.compute_obs_mid) and the pk's
-    prior rows.  Only what K1 and finish consume is uploaded (not the
-    JAX package's lpeV/lpnV).  Returns device tensors as
+    prior rows.  Only DENSE_KEYS are uploaded.  Returns device tensors as
     run_slab_decode."""
     H_pad, L_pad, numT = pk["H_pad"], pk["L_pad"], pk["numT"]
 

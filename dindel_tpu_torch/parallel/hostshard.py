@@ -29,6 +29,7 @@ import os
 import pickle
 import socket
 import struct
+import sys
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -276,9 +277,9 @@ def _staging_main(sock_path: str, bam_paths: List[str], fasta_path: str,
                   lib_file: Optional[str] = None) -> None:
     """Entry point of one staging process.  It hides the card before its
     first CUDA call and builds its engine on the CPU with the proxy as
-    `remote`, so it never opens a device context: all device work goes
-    through the proxy (only a slab rescue runs here, on the CPU).  Its
-    torch work runs on one thread: the staging processes share the
+    `remote`, so it never opens a device context: all device work, a
+    slab rescue's per-window programs included, goes through the proxy.
+    Its torch work runs on one thread: the staging processes share the
     host's cores."""
     os.environ["CUDA_VISIBLE_DEVICES"] = ""
     try:
@@ -337,9 +338,13 @@ def run_hostshard(bam_paths: List[str], fasta_path: str, params,
     into out_glf (single header, shard rows in window-file order —
     byte-equal to a sequential multi-file run).  engine_kw are the
     staging engines' BatchedWindowEngine arguments (dtype, exact_ties,
-    device_folds, batch_windows, ...).  Returns the shard GLF paths;
-    with `stats_out`, fills it with the staging processes' timings and
-    stage seconds (``per_proc``) and the server's (``server``)."""
+    device_folds, batch_windows, ...).  Every staging process's stats
+    are read: one that initialized CUDA raises RuntimeError, and slab
+    rescues are summed (``slab_rescues``) and reported on stderr.
+    Returns the shard GLF paths; with `stats_out`, fills it with the
+    staging processes' timings and stage seconds (``per_proc``), the
+    summed rescues and the server's stats (``server``)."""
+    import json
     import multiprocessing as mp
     import tempfile
 
@@ -382,41 +387,49 @@ def run_hostshard(bam_paths: List[str], fasta_path: str, params,
                 p.join()
         server.close()
 
-    if stats_out is not None:
-        import json
-        stats = []
-        for err in err_paths:
-            sp = err + ".stats"
-            if os.path.exists(sp):
-                stats.append(json.load(open(sp)))
-        if stats:
-            stats_out["t_start"] = min(st["t_start"] for st in stats)
-            stats_out["t_end"] = max(st["t_end"] for st in stats)
-            stats_out["windows_ok"] = sum(st["windows_ok"] for st in stats)
-            # warm = the BEST repeat past the first across all procs
-            # (cold start-up lands in repeat 1)
-            nrep = min(len(st.get("repeats", [])) for st in stats)
-            best = None
-            for k in range(1, nrep):
-                marks = [st["repeats"][k] for st in stats]
-                span = max(m["t1"] for m in marks) - min(m["t0"] for m in marks)
-                wins = sum(m["windows"] for m in marks)
-                if span > 0 and (best is None or wins / span > best[0]):
-                    best = (wins / span, span, wins)
-            if best:
-                stats_out["warm_span_s"] = best[1]
-                stats_out["warm_windows"] = best[2]
-            stats_out["per_proc"] = stats
-        stats_out["server"] = dict(server.stats)
-
-    # ordered merge: header from the first shard, then every shard's
-    # data rows in window-file order
+    # every process exited 0, so each wrote its stats
+    stats = [json.load(open(err + ".stats")) for err in err_paths]
+    if any(st["cuda_initialized"] for st in stats):
+        raise RuntimeError("a staging process initialized CUDA")
+    rescues = sum(st["stage_seconds"].get("slab_rescues", 0) for st in stats)
+    if rescues:
+        print(f"WARNING: staging processes rescued {rescues:g} slabs on the "
+              "device server (see their stderr for the first cause)",
+              file=sys.stderr)
     shard_paths = [glf_of[wf] for wf in win_files]
+    merge_glf(shard_paths, out_glf)
+
+    if stats_out is not None:
+        stats_out["slab_rescues"] = rescues
+        stats_out["t_start"] = min(st["t_start"] for st in stats)
+        stats_out["t_end"] = max(st["t_end"] for st in stats)
+        stats_out["windows_ok"] = sum(st["windows_ok"] for st in stats)
+        # warm = the BEST repeat past the first across all procs
+        # (cold start-up lands in repeat 1)
+        nrep = min(len(st["repeats"]) for st in stats)
+        best = None
+        for k in range(1, nrep):
+            marks = [st["repeats"][k] for st in stats]
+            span = max(m["t1"] for m in marks) - min(m["t0"] for m in marks)
+            wins = sum(m["windows"] for m in marks)
+            if span > 0 and (best is None or wins / span > best[0]):
+                best = (wins / span, span, wins)
+        if best:
+            stats_out["warm_span_s"] = best[1]
+            stats_out["warm_windows"] = best[2]
+        stats_out["per_proc"] = stats
+        stats_out["server"] = dict(server.stats)
+    return shard_paths
+
+
+def merge_glf(paths: List[str], out_glf: str) -> None:
+    """Ordered GLF merge: the header of the first file, then every file's
+    data rows in the order given (the bytes one process writes for the
+    same window files in sequence)."""
     with open(out_glf, "w") as out:
-        for i, sp in enumerate(shard_paths):
-            with open(sp) as f:
+        for i, path in enumerate(paths):
+            with open(path) as f:
                 for j, line in enumerate(f):
                     if j == 0 and i > 0:
                         continue  # drop repeated header
                     out.write(line)
-    return shard_paths

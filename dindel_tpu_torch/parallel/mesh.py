@@ -33,7 +33,8 @@ from ..config import ObservationModelParameters
 from ..device import resolve_device
 from ..hmm.pack import (_round_up, compute_obs_mid, merge_compact,
                         pack_pairs, pack_pairs_compact, pad_compact)
-from ..hmm.slab import run_packed, run_slab_decode, run_slab_decode_sharded
+from ..hmm.slab import (DENSE_KEYS, run_packed, run_slab_decode,
+                        run_slab_decode_sharded)
 from ..model import Haplotype, Read
 
 PACK_KEYS = ["hap_len", "read_len", "b_mid", "read_codes", "hap_codes",
@@ -84,11 +85,6 @@ def make_mesh(n_dp: int, n_rp: int, devices=None) -> Mesh:
     return Mesh([devs[i * n_rp:(i + 1) * n_rp] for i in range(n_dp)])
 
 
-# the dense pk arrays hmm/slab.py run_packed consumes
-_STEP_KEYS = ("hap_len", "read_len", "b_mid", "read_codes", "hap_codes",
-              "eq", "uq", "lpe", "lpn", "prior_rmq", "prior_hmq")
-
-
 def sharded_window_step(mesh: Mesh, H_pad: int, L_pad: int, numT: int,
                         nh: int, exact_ties: bool = True):
     """Returns a function over a packed window batch (the arrays of
@@ -126,7 +122,7 @@ def sharded_window_step(mesh: Mesh, H_pad: int, L_pad: int, numT: int,
                 def local(k):
                     a = arrays[k][ws, ps]
                     return a.reshape((W_loc * B_loc,) + a.shape[2:])
-                pk = {k: local(k) for k in _STEP_KEYS}
+                pk = {k: local(k) for k in DENSE_KEYS}
                 pk.update(H_pad=H_pad, L_pad=L_pad, numT=numT,
                           scalars=scalars)
                 ll = run_packed(pk, exact_ties, dev)[0].reshape(

@@ -37,7 +37,7 @@ from dindel_tpu_torch.hmm.slab import (run_packed, run_slab_decode,
                                        run_slab_stats)
 from dindel_tpu_torch.infer.device_em import run_batched_em
 from dindel_tpu_torch.io.bam import BamReader
-from dindel_tpu_torch.parallel.hostshard import run_hostshard
+from dindel_tpu_torch.parallel.hostshard import merge_glf, run_hostshard
 from dindel_tpu_torch.parallel.mesh import make_mesh, synth_windows
 from dindel_tpu_torch.pipeline.windows import make_windows
 from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
@@ -382,12 +382,11 @@ def test_hostshard_on_card_equals_one_process(cuda, tmp_path):
     params.do_diploid = True
     params.file_name = str(tmp_path / "seq")
     eng = BatchedWindowEngine([bam], fa, params, device="cuda")
-    seq = []
-    for i, wf in enumerate(win_files):
-        eng.detect_indels(wf, str(tmp_path / f"seq.{i}"))
-        lines = open(tmp_path / f"seq.{i}").read().splitlines(keepends=True)
-        seq += lines if i == 0 else lines[1:]
+    parts = [str(tmp_path / f"seq.{i}") for i in range(len(win_files))]
+    for wf, part in zip(win_files, parts):
+        eng.detect_indels(wf, part)
     eng.close()
+    merge_glf(parts, str(tmp_path / "seq.glf.txt"))
     params.file_name = str(tmp_path / "shard")
     stats = {}
     n0 = pair_hmm_dp.launches
@@ -395,12 +394,13 @@ def test_hostshard_on_card_equals_one_process(cuda, tmp_path):
                   str(tmp_path / "shard.glf.txt"), n_procs=2,
                   stats_out=stats, device="cuda")
     assert pair_hmm_dp.launches > n0
+    assert stats["slab_rescues"] == 0
     for st in stats["per_proc"]:
         assert st["cuda_initialized"] is False
         assert st["stage_seconds"].get("slab_rescues", 0) == 0
     got = open(tmp_path / "shard.glf.txt").read()
     assert "dip.map" in got
-    assert got == "".join(seq)
+    assert got == open(tmp_path / "seq.glf.txt").read()
 
 
 def test_engine_mesh_on_four_cards_equals_single(cuda, tmp_path):

@@ -5,10 +5,14 @@ bytes identical to one process running the same window files in
 sequence, the port's and, in float64, the JAX engine's
 (tests/test_hostshard.py ties the JAX run_hostshard to the same
 sequential run).  Every staging process must close with no slab rescued
-and without having initialized CUDA, and a failure in the server must
-reach the staging engine as a RuntimeError and rescue only its slab."""
+and without having initialized CUDA.  A failure in the server must reach
+the staging engine as a RuntimeError and rescue only its slab, on the
+server; a rescue the server cannot run ends the run, and the staging
+process never runs the DP itself."""
 
+import json
 import os
+import socket
 import tempfile
 
 import numpy as np
@@ -21,8 +25,9 @@ from dindel_tpu_torch import cli
 from dindel_tpu_torch.config import Parameters
 from dindel_tpu_torch.engine.batched import BatchedWindowEngine
 from dindel_tpu_torch.engine.candidates import get_candidates
+from dindel_tpu_torch.hmm import batch as hmm_batch
 from dindel_tpu_torch.parallel.hostshard import (DeviceProxy, DeviceServer,
-                                                 run_hostshard)
+                                                 merge_glf, run_hostshard)
 from dindel_tpu_torch.pipeline.windows import make_windows
 from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
 
@@ -57,23 +62,26 @@ def _params(cls, tmp, tag, mode):
 def _sequential(eng, tmp, tag, win_files):
     """One engine over the window files in order, merged as run_hostshard
     merges its shards (one header)."""
-    out = []
-    for i, wf in enumerate(win_files):
-        gp = str(tmp / f"{tag}.glf.{i}")
+    parts = [str(tmp / f"{tag}.glf.{i}") for i in range(len(win_files))]
+    for wf, gp in zip(win_files, parts):
         eng.detect_indels(wf, gp)
-        lines = open(gp).read().splitlines(keepends=True)
-        out += lines if i == 0 else lines[1:]
     eng.close()
     assert eng.stats.stage_seconds.get("slab_rescues", 0) == 0
-    return "".join(out)
+    merge_glf(parts, str(tmp / f"{tag}.glf.txt"))
+    return open(tmp / f"{tag}.glf.txt").read()
+
+
+def _check_procs(per_proc):
+    for st in per_proc:
+        assert st["cuda_initialized"] is False
+        assert st["stage_seconds"].get("slab_rescues", 0) == 0
+        assert st["windows_ok"] > 0
 
 
 def _check_children(stats, n_procs):
     assert len(stats["per_proc"]) == n_procs
-    for st in stats["per_proc"]:
-        assert st["cuda_initialized"] is False
-        assert st["stage_seconds"].get("slab_rescues", 0) == 0
-        assert st["windows_ok"] > 0
+    _check_procs(stats["per_proc"])
+    assert stats["slab_rescues"] == 0
     assert stats["server"]["dispatches"] > 0
 
 
@@ -123,13 +131,17 @@ def test_hostshard_f64_matches_jax_sequential(sim):
 
 def test_hostshard_cli_cpu(sim):
     """--stageProcs through the CLI (comma-separated --varFile): the merged
-    GLF equals one engine's over the same files with the CLI's settings."""
+    GLF equals one engine's over the same files with the CLI's settings,
+    and the staging processes' stats files beside it show no rescue and
+    no CUDA."""
     tmp, fa, bam, win_files = sim
     out = str(tmp / "cli")
     assert cli.main(["--analysis", "indels", "--doDiploid", "--bamFile", bam,
                      "--ref", fa, "--varFile", ",".join(win_files),
                      "--outputFile", out, "--engine", "batched",
                      "--stageProcs", "2", "--device", "cpu"]) == 0
+    _check_procs([json.load(open(f"{out}.glf.txt.err{s}.stats"))
+                  for s in range(2)])
     seq = _sequential(BatchedWindowEngine(
         [bam], fa, _params(Parameters, tmp, "cliseq", "dip"), device="cpu",
         exact_ties=True), tmp, "cliseq", win_files)
@@ -158,21 +170,26 @@ def test_server_failure_is_runtime_error(server):
         proxy.close()
 
 
-def test_server_failure_rescues_only_its_slab(sim, server, monkeypatch):
-    """The server's second slab program raises: the staging engine's
-    combined fetch raises RuntimeError, each slab is fetched again on its
-    own, and only the failing slab is rescued (on this process's CPU);
-    its windows still get rows."""
+def _remote_engine_with_faults(sim, server, monkeypatch, fails):
+    """A staging engine (one window per slab) on `server`, whose n-th
+    program (from 1) raises where fails(n); the staging process's own DP
+    route raises if it is ever taken.  Returns (engine, kinds of the
+    programs the server ran, (pytrees, error) of every fetch that
+    raised, the proxy, the window file)."""
     tmp, fa, bam, win_files = sim
     run = DeviceServer._run
     calls = []
 
     def failing(self, kind, payload):
         calls.append(kind)
-        if len(calls) == 2:
+        if fails(len(calls)):
             raise RuntimeError("injected device fault")
         return run(self, kind, payload)
     monkeypatch.setattr(DeviceServer, "_run", failing)
+
+    def local_dp(*args, **kw):
+        raise AssertionError("the staging process ran the DP")
+    monkeypatch.setattr(hmm_batch, "run_packed", local_dp)
     fetches = []
     fetch = DeviceProxy.fetch_pytrees
 
@@ -184,18 +201,64 @@ def test_server_failure_rescues_only_its_slab(sim, server, monkeypatch):
             raise
     monkeypatch.setattr(DeviceProxy, "fetch_pytrees", spy)
     proxy = DeviceProxy(server.path)
+    eng = BatchedWindowEngine(
+        [bam], fa, _params(Parameters, tmp, "fault", "dip"),
+        device="cpu", remote=proxy, max_pairs_per_slab=1)
+    return eng, calls, fetches, proxy, win_files[0]
+
+
+def test_server_failure_rescues_only_its_slab(sim, server, monkeypatch):
+    """The server's second slab program raises: the staging engine's
+    combined fetch raises RuntimeError, each slab is fetched again on its
+    own, and only the failing slab is rescued, as one dense program per
+    window on the server (never on the staging process's CPU); its
+    windows still get rows."""
+    tmp = sim[0]
+    eng, calls, fetches, proxy, wf = _remote_engine_with_faults(
+        sim, server, monkeypatch, lambda n: n == 2)
     try:
-        eng = BatchedWindowEngine(
-            [bam], fa, _params(Parameters, tmp, "fault", "dip"),
-            device="cpu", remote=proxy, max_pairs_per_slab=1)
-        eng.detect_indels(win_files[0], str(tmp / "fault.glf.txt"))
+        eng.detect_indels(wf, str(tmp / "fault.glf.txt"))
         eng.close()
     finally:
         proxy.close()
-    assert len(calls) >= 3
+    slabs = [k for k in calls if k != "dense"]
+    assert len(slabs) >= 3
+    # the failing slab's one window, re-scored on the server
+    assert calls.count("dense") == 1
     assert eng.stats.stage_seconds.get("slab_rescues") == 1
     # the combined fetch, then the failing slab alone
-    assert [n for n, _ in fetches] == [len(calls), 1]
+    assert [n for n, _ in fetches] == [len(slabs), 1]
     assert all("injected device fault" in e for _, e in fetches)
-    assert eng.stats.windows_ok == len(calls)
+    assert eng.stats.windows_ok == len(slabs)
     assert server.stats["dispatches"] == len(calls)
+
+
+@pytest.mark.parametrize("lost", [False, True])
+def test_server_failure_during_rescue_ends_run(sim, server, monkeypatch,
+                                               lost):
+    """Every program of the server past the first raises, or the server
+    is gone by the time the rescue dispatches: the rescued window cannot
+    reach the device, and the run ends instead of scoring it on the
+    staging process's CPU."""
+    tmp = sim[0]
+    eng, calls, fetches, proxy, wf = _remote_engine_with_faults(
+        sim, server, monkeypatch, lambda n: n >= 2)
+    if lost:
+        # the server drops every connection when the first fetch arrives
+        fetch_ids = DeviceProxy._fetch_ids
+
+        def drop(self, rids):
+            self._sock.shutdown(socket.SHUT_RDWR)
+            return fetch_ids(self, rids)
+        monkeypatch.setattr(DeviceProxy, "_fetch_ids", drop)
+    try:
+        with pytest.raises((RuntimeError, OSError)):
+            eng.detect_indels(wf, str(tmp / "fault_end.glf.txt"))
+    finally:
+        eng.close()
+        proxy.close()
+    assert eng.stats.stage_seconds.get("slab_rescues") == 1
+    assert eng.stats.windows_ok == 0
+    if not lost:
+        assert calls[-1] == "dense"
+        assert fetches[-1][0] == 1
