@@ -213,9 +213,9 @@ def issue_bounds(loops, B, bounds, clock_hz, sms=132):
 # phase 3: kernel vs plain
 
 
-def dp_inputs(n_windows, seed, device):
-    """A compact slab of synthetic windows of the bench geometry,
-    expanded on `device`."""
+def dp_inputs(n_windows, seed, device, nr=NR):
+    """A compact slab of synthetic windows of the bench geometry (`nr`
+    reads per window), expanded on `device`."""
     import numpy as np
     from dindel_tpu_torch.config import ObservationModelParameters
     from dindel_tpu_torch.hmm.dp_ref import dp_bounds
@@ -225,7 +225,7 @@ def dp_inputs(n_windows, seed, device):
     from dindel_tpu_torch.parallel.mesh import synth_windows
 
     params = ObservationModelParameters()
-    wins = synth_windows(n_windows, nh=NH, nr=NR, H=H, L=L, seed=seed)
+    wins = synth_windows(n_windows, nh=NH, nr=nr, H=H, L=L, seed=seed)
     H_pad = max(max(x.size() for x in haps) for haps, _, _ in wins)
     H_pad = ((H_pad + 15) // 16) * 16
     pk = pad_compact(merge_compact([
@@ -446,9 +446,11 @@ def sync(device):
         torch.cuda.synchronize()
 
 
-def time_ms(fn, reps, device):
+def time_ms(fn, reps, device, host=False):
     """Mean time per call over `reps` chained calls (CUDA events; the
-    calls serialize on the current stream), after one warm-up call."""
+    calls serialize on the current stream), after one warm-up call.
+    With `host`, returns (that time, the host clock's mean per call from
+    the first enqueue to the end of the chain's synchronize)."""
     import torch
     fn()
     sync(device)
@@ -456,15 +458,19 @@ def time_ms(fn, reps, device):
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-        return (time.perf_counter() - t0) * 1e3 / reps
+        ms = (time.perf_counter() - t0) * 1e3 / reps
+        return (ms, ms) if host else ms
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    ms = start.elapsed_time(end) / reps
+    return (ms, host_ms) if host else ms
 
 
 # ---------------------------------------------------------------------------
@@ -552,15 +558,23 @@ def glf_rows_ok(glfs):
 
 
 def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
-                max_pairs=24576, flank=None, f64=False, mesh=None, **attrs):
+                max_pairs=24576, flank=None, f64=False, mesh=None,
+                lib_file=None, hmm_backend=None, batch_windows=128,
+                **attrs):
     """One pass of the port's batched engine (the shipped configuration:
     float32, fast ties; with `f64`, float64 and exact ties; on `mesh`
     when given) over the window files in order, their GLFs merged into
     `glf` as hostshard merges its shards (one header); `attrs` are set on
-    the Parameters (diploid by default), `flank` is --flankRefSeq."""
+    the Parameters (diploid by default), `flank` is --flankRefSeq,
+    `lib_file` is --insertPrior --libFile <lib_file>, `batch_windows`
+    --batchWindows.  With `hmm_backend`, the streaming engine
+    (WindowEngine, the CLI's default) with that backend runs instead of
+    the batched one."""
     import numpy as np
     from dindel_tpu_torch.config import Parameters
     from dindel_tpu_torch.engine.batched import BatchedWindowEngine
+    from dindel_tpu_torch.engine.window import WindowEngine
+    from dindel_tpu_torch.model import LibraryCollection
     from dindel_tpu_torch.parallel.hostshard import merge_glf
 
     params = Parameters()
@@ -570,11 +584,23 @@ def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
         setattr(params, k, v)
     if flank is not None:
         params.obs_params.pad_cover = flank
-    eng = BatchedWindowEngine([bam], fa, params, device=device,
-                              exact_ties=f64,
-                              dtype=np.float64 if f64 else np.float32,
-                              device_folds=folds, device_em=em,
-                              max_pairs_per_slab=max_pairs, mesh=mesh)
+    libraries = None
+    if lib_file is not None:
+        # as the CLI sets --insertPrior and --libFile (cli.py)
+        params.obs_params.map_unmapped_reads = True
+        params.map_unmapped_reads = True
+        libraries = LibraryCollection()
+        libraries.add_from_file(str(lib_file))
+    if hmm_backend is not None:
+        eng = WindowEngine([bam], fa, params, libraries,
+                           hmm_backend=hmm_backend, device=device)
+    else:
+        eng = BatchedWindowEngine([bam], fa, params, libraries,
+                                  device=device, exact_ties=f64,
+                                  dtype=np.float64 if f64 else np.float32,
+                                  device_folds=folds, device_em=em,
+                                  batch_windows=batch_windows,
+                                  max_pairs_per_slab=max_pairs, mesh=mesh)
     parts = ([Path(f"{glf}.{i}") for i in range(len(win_files))]
              if len(win_files) > 1 else [Path(glf)])
     t0 = time.perf_counter()
@@ -773,10 +799,11 @@ def indels_cli(fa, bam, win_file, out, device, *extra,
     return time.perf_counter() - t0
 
 
-def guard_rescues():
+def guard_rescues(fail=True):
     """From here on, an engine of this process that closes with a
     rescued slab fails the run: a rescue would hide a broken device
-    path.  Returns the list of closed engines' rescue counts."""
+    path.  Returns the list of closed engines' rescue counts; with
+    `fail` False the counts are only collected."""
     from dindel_tpu_torch.engine import window
 
     closed = []
@@ -786,7 +813,7 @@ def guard_rescues():
         close(eng)
         n = eng.stats.stage_seconds.get("slab_rescues", 0)
         closed.append(n)
-        if n:
+        if n and fail:
             raise SystemExit(f"an engine rescued {n} slabs: its device "
                              "path failed")
     window.WindowEngine.close = checked

@@ -3,7 +3,7 @@
 The reference's only observability channels are ad-hoc couts and the GLF
 diagnostics columns (SURVEY.md §5); here every run tracks per-stage
 timing and throughput (windows/s, pair-HMM cells/s, reads fetched,
-error-row counts) and can emit a jax.profiler trace."""
+error-row counts) and can emit a torch.profiler trace (maybe_profile)."""
 
 from __future__ import annotations
 
