@@ -6,11 +6,12 @@
 Phases, in order; any failure exits non-zero:
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles the CUDA pair-HMM DP kernel from
-   dindel_tpu_torch/csrc/ (nvcc, sm_90a, four translation units in
-   parallel), prints the build time, ptxas's registers and spills, and
-   the SASS instruction counts of the main-path kernel's two step loops
-   (cuobjdump);
+2. build: compiles both kernel libraries from dindel_tpu_torch/csrc/ at
+   once (nvcc, sm_90a, four translation units each, all in parallel):
+   the pair-HMM DP (K1, pair_hmm_dp.cu) and the slab epilogue (K2
+   finish, K3 pair_stats, K4 window_call, slab_epilogue.cu); prints the
+   build time, ptxas's registers and spills per kernel, and the SASS
+   instruction counts of K1's main-path step loops (cuobjdump);
 3. kernel vs plain, on the card: edge shapes (S_half not a multiple of
    32 and up to 1024, odd S_half, numT 2..15, B not a multiple of the
    pairs per block, b_mid at 0 and at read_len-1, a zero-length hap,
@@ -21,6 +22,12 @@ Phases, in order; any failure exits non-zero:
    the six finish outputs equal; then both timed with CUDA events over
    chained calls (DP cells/s, cells = B*L*2*(H+2)*numT) beside the
    kernel's bound (bytes and operations) and the share of it reached;
+   then K2-K4 against their plain versions on K1's outputs: at K1's edge
+   shapes in both folds (finish with read_len on the consumed columns
+   and without it on every column; pair_stats with V = 4 and V = 0;
+   window_call at chip_smoke.FOLD_EDGE_CASES), and at C1 and C2 in both
+   folds, all bit-equal, each timed with CUDA events beside its plain
+   version and its bound;
 4. the slice at realistic size: 360 planted indels, 30x, 100 bp reads
    (seed 3), through the CLI entry points getCIGARindels -> makeWindows
    -> indels --doDiploid --engine batched --hmmBackend pallas --device
@@ -28,7 +35,9 @@ Phases, in order; any failure exits non-zero:
    around the indels run; then a warm pass through the engine (windows/s,
    stage seconds, peak device memory);
 5. parity: the first windows of that run on the card and on the CPU
-   (plain versions), host folds: GLF bytes identical;
+   (plain versions), host folds: GLF bytes identical; then the first
+   120 windows with device folds on the card through K2-K4 and through
+   their plain versions: GLF bytes identical;
 6. golden call: the one-deletion sim's VCF holds 3128 AGGG A 0/1;
 7. decode: the first 120 windows of phase 4 through the CLI with
    --outputRealignedBAM (the full-decode route: map_state fetched and
@@ -53,8 +62,9 @@ Phases, in order; any failure exits non-zero:
    seconds (the per-window hmm split into pack, device and decode) and
    kernel launches (at least one per scored window); its GLF byte-equal
    to the batched engine's on the card in float64 with exact ties and
-   host folds; the kernel timed at the median window's shape beside its
-   plain version and its bound; 24 windows with `--hmmBackend pallas`
+   host folds; K1 timed at the median window's shape beside its plain
+   version and its bound, and K2 (float64, exact ties) checked and timed
+   there too; 24 windows with `--hmmBackend pallas`
    on the card and on the CPU: GLF identical; 24 windows with
    `--faster` (host only) in six CLI processes at once: ok rows;
 11. dense: the same 120 windows with `--engine batched --hmmBackend
@@ -82,11 +92,15 @@ Phases, in order; any failure exits non-zero:
 
 Every engine this process closes, every shard worker's and every
 staging process's must have rescued no slab (a rescue would hide a
-broken device path).  The line before the last is the kernel table as
-JSON, with the kernel's launches on each path (device call, decode,
-pooled, streaming float64 and float32, dense, mesh, hostshard); the
-last line is {"ok": true, "device": {...}}.  Needs nothing but the
-repository, the CUDA toolkit and PyTorch; imports no JAX."""
+broken device path).  Every path's run starts with the four kernels'
+launch counts at 0 and reads them at its end; a kernel the path must
+run (REQUIRED) that never launched fails it.  The line before the last
+is the kernel table as JSON, K1-K4, each with its launches on the main
+path (the device-call route of phase 4) and on each path (device call,
+decode, pooled, streaming float64 and float32, dense, mesh,
+hostshard); the last line is {"ok": true, "device": {...}}.  Needs
+nothing but the repository, the CUDA toolkit and PyTorch; imports no
+JAX."""
 
 from __future__ import annotations
 
@@ -213,9 +227,9 @@ def issue_bounds(loops, B, bounds, clock_hz, sms=132):
 # phase 3: kernel vs plain
 
 
-def dp_inputs(n_windows, seed, device, nr=NR):
+def dp_inputs(n_windows, seed, device, nr=NR, dtype="float32"):
     """A compact slab of synthetic windows of the bench geometry (`nr`
-    reads per window), expanded on `device`."""
+    reads per window, `dtype` floats), expanded on `device`."""
     import numpy as np
     from dindel_tpu_torch.config import ObservationModelParameters
     from dindel_tpu_torch.hmm.dp_ref import dp_bounds
@@ -229,7 +243,8 @@ def dp_inputs(n_windows, seed, device, nr=NR):
     H_pad = max(max(x.size() for x in haps) for haps, _, _ in wins)
     H_pad = ((H_pad + 15) // 16) * 16
     pk = pad_compact(merge_compact([
-        pack_pairs_compact(haps, reads, hs, params, np.float32, H_pad=H_pad)
+        pack_pairs_compact(haps, reads, hs, params, np.dtype(dtype),
+                           H_pad=H_pad)
         for haps, reads, hs in wins]))
     t = tables_to_device(pk, device)
     ex = expand_compact(pk["H_pad"], pk["L_pad"], t["eq_r"].dtype, t,
@@ -440,6 +455,402 @@ def compare_and_time(name, n_windows, seed, device, reps, plain_reps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: the slab epilogue kernels vs plain
+
+KERNELS = ("pair_hmm_dp", "finish", "pair_stats", "window_call")
+# the kernels each path must have launched (counted in its run)
+REQUIRED = {"device_call": KERNELS,
+            "decode": ("pair_hmm_dp", "finish"),
+            "pooled": ("pair_hmm_dp", "finish"),
+            "streaming_f64": ("pair_hmm_dp", "finish"),
+            "streaming_f32": ("pair_hmm_dp", "finish"),
+            "dense": ("pair_hmm_dp", "finish"),
+            "mesh": ("pair_hmm_dp", "finish", "pair_stats"),
+            "hostshard": ("pair_hmm_dp", "finish", "pair_stats")}
+# the TPU-package code each kernel replaces (file:line)
+REPLACES = {"pair_hmm_dp": "dindel_tpu/hmm/pallas_kernel.py:107",
+            "finish": "dindel_tpu/hmm/batch.py:249",
+            "pair_stats": "dindel_tpu/hmm/batch.py:1823",
+            "window_call": "dindel_tpu/infer/device_call.py:232"}
+EPI_V = 4        # variant slots per hap in the stats checks
+EPI_SITES = 4    # call sites per window in the fold checks
+FINISH_NAMES = ("ll", "off_hap", "off_hap_hmq", "ll_off", "ll_on",
+                "map_state")
+STATS_NAMES = ("fb", "lb", "n_bqt", "n_mm_bqt", "m_log_bq", "n_mm_left",
+               "n_mm_right", "num_mm", "has_event", "any_mism", "n_ind",
+               "cov_ok")
+
+
+def kernel_wrappers():
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+    return {"pair_hmm_dp": pair_hmm_dp, "finish": ek.finish,
+            "pair_stats": ek.pair_stats, "window_call": ek.window_call}
+
+
+def reset_launches():
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_launches():
+    return {n: w.launches for n, w in kernel_wrappers().items()}
+
+
+def check_launches(path, launches):
+    missing = [k for k in REQUIRED.get(path, ()) if launches[k] <= 0]
+    if missing:
+        raise SystemExit(f"{path}: kernels never launched: {missing}")
+
+
+def ulps(a, b):
+    """Largest distance in units in the last place between two float
+    tensors of one dtype (0 where they are equal, NaN included)."""
+    import torch
+    it = torch.int32 if a.dtype == torch.float32 else torch.int64
+    ia, ib = a.contiguous().view(it).long(), b.contiguous().view(it).long()
+    # order the bit patterns so that adjacent floats differ by one
+    top = torch.iinfo(it).min
+    ia = torch.where(ia < 0, top - ia, ia)
+    ib = torch.where(ib < 0, top - ib, ib)
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(same, 0, (ia - ib).abs())
+    return int(d.max().item()) if d.numel() else 0
+
+
+def walked_steps(b_mid, read_len, L_pad):
+    """Backpointer rows the finish kernel reads with read_len: the down
+    walk from the anchor column and the up walk to the read's end."""
+    import numpy as np
+    a = np.clip(np.asarray(b_mid, np.int64), 0, L_pad - 1)
+    last = np.minimum(L_pad - 2, np.asarray(read_len, np.int64) - 2)
+    return int((a + np.maximum(0, last - a + 1)).sum())
+
+
+def bound(nbytes, ops, itemsize):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the float rate of the type."""
+    rate = F64_OPS_PER_S if itemsize == 8 else F32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def finish_bound(B, S, L_pad, steps, itemsize):
+    """Bytes: the five (B, S) rows, b_mid, hap_len and read_len read once,
+    one backpointer byte per walked step, the outputs written once.
+    Operations: per state the four adds and four compares of the folds."""
+    nbytes = (5 * B * S * itemsize + 3 * B * 4 + steps
+              + 3 * B * itemsize + 2 * B + B * L_pad * 4)
+    return bound(nbytes, 8 * B * S, itemsize)
+
+
+def stats_bound(B, L_pad, V, nr, nh, H_pad, cols):
+    """Bytes: map_state, the per-pair vectors, the read and hap tables
+    and the slot tables read once, the outputs written once.
+    Operations: the float64 m_log_bq adds over the `cols` read columns
+    (the integer work is not counted)."""
+    nbytes = (B * L_pad * 4 + B * (4 + 4 + 8 + 8 + 1)
+              + nr * L_pad * (1 + 1 + 1 + 8) + nh * H_pad
+              + nh * V * (4 + 4 + 1 + 1) + B * (8 * 4 + 8 + 2) + B * V)
+    return bound(nbytes, cols, 8)
+
+
+def window_bound(W, NH, S, NR, nreads, itemsize):
+    """Bytes: the ll values the windows read, index_map, nr_w and pair_pr
+    read once, base and site written once.  Operations: per (window,
+    pair, read) the eight of t (max, min, sub, exp, add, log, add, add;
+    exp and log counted as one each) and the S+1 fold adds."""
+    NP = NH * (NH + 1) // 2
+    nbytes = (nreads * NH * itemsize + W * NH * NR * 4 + W * 4
+              + W * S * NP * itemsize + W * (S + 1) * NP * itemsize)
+    return bound(nbytes, nreads * NP * (8 + S + 1), itemsize)
+
+
+def stats_tables(t, device, seed):
+    """pair_stats's inputs besides map_state and off_hap_hmq: the slab's
+    tables `t`, and EPI_V random variant slots per hap (flanks at the
+    LO/RO sentinel codes and below 0 included, some invalid)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    n = t["hap_codes_h"].shape[0]
+    left = rng.randint(-4, 50, size=(n, EPI_V)).astype(np.int32)
+    left[::3, 0] = -4
+    left[1::3, 0] = -3
+    vt = dict(v_left_h=left,
+              v_right_h=(left + rng.randint(0, 8, size=(n, EPI_V))
+                         ).astype(np.int32),
+              v_isdel_h=rng.rand(n, EPI_V) < 0.5,
+              v_valid_h=rng.rand(n, EPI_V) < 0.8)
+    vt = {k: torch.from_numpy(v).to(device) for k, v in vt.items()}
+    return [t[k] for k in ("read_len", "hap_len", "read_idx", "hap_idx",
+                           "read_codes_r", "hap_codes_h", "bqt_r", "q95_r",
+                           "log10q_r")] + [vt[k] for k in (
+        "v_left_h", "v_right_h", "v_isdel_h", "v_valid_h")]
+
+
+def fold_inputs(n_windows, nh, nr, S, dtype, device, seed):
+    """The per-window fold layout of a slab of n_windows windows of nh
+    haps x nr reads (pairs window-major, hap, read), W padded to a power
+    of two of at least 8 as the engine lays it out: (W, NH, S, NR,
+    index_map, nr_w, pair_pr)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    W = max(8, 1 << (n_windows - 1).bit_length())
+    NP = nh * (nh + 1) // 2
+    index_map = np.zeros((W, nh, nr), np.int32)
+    nr_w = np.zeros(W, np.int32)
+    for w in range(n_windows):
+        index_map[w] = (w * nh * nr + np.arange(nh)[:, None] * nr
+                        + np.arange(nr)[None, :])
+        nr_w[w] = nr
+    pair_pr = -rng.rand(W, S, NP) * 10
+    t = lambda a, d=None: torch.as_tensor(a, dtype=d, device=device)  # noqa
+    return (W, nh, S, nr, t(index_map), t(nr_w), t(pair_pr, dtype))
+
+
+def finish_mismatches(k, r, read_len, L_pad):
+    """Names of the finish outputs where kernel `k` and plain `r` differ
+    (map_state on the consumed columns)."""
+    import torch
+    valid = (torch.arange(L_pad, device=read_len.device)[None, :]
+             < read_len.long()[:, None])
+    bad = []
+    for nm, a, b in zip(FINISH_NAMES, k, r):
+        if nm == "map_state":
+            a, b = a.masked_fill(~valid, -1), b.masked_fill(~valid, -1)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            bad.append(nm)
+    return bad
+
+
+def finish_check(H_pad, L_pad, numT, dp, fin, exact):
+    """The finish kernel against the plain finish on the DP outputs `dp`:
+    with read_len (the slab programs' call) on the consumed columns, and
+    without it on every column (both then decode the same rows).
+    Returns (kernel outputs, mismatches)."""
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    from dindel_tpu_torch.hmm.finish import finish as plain
+
+    args = (H_pad, L_pad, numT, fin["b_mid"], fin["hap_len"], dp[0], dp[1],
+            fin["obs_mid"], fin["prior_rmq"], fin["prior_hmq"], dp[2], dp[3])
+    r = plain(*args, exact_ties=exact)
+    k = ek.finish(*args, exact_ties=exact, read_len=fin["read_len"])
+    full = ek.finish(*args, exact_ties=exact)
+    sync(dp[0].device)
+    bad = finish_mismatches(k, r, fin["read_len"], L_pad)
+    bad += [f"{n} (all columns)" for n, a, b in zip(FINISH_NAMES, full, r)
+            if not a.equal(b)]
+    return k, bad
+
+
+def stats_check(H_pad, L_pad, map_state, off_hap_hmq, tables, max_mm=2):
+    """The pair_stats kernel against the plain version; returns the
+    mismatching output names."""
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    from dindel_tpu_torch.hmm.stats import pair_stats as plain
+
+    V = tables[-1].shape[1]
+    args = (H_pad, L_pad, V, map_state, *tables, off_hap_hmq, max_mm)
+    k, r = ek.pair_stats(*args), plain(*args)
+    sync(map_state.device)
+    return [n for n, a, b in zip(STATS_NAMES, k, r)
+            if a.dtype != b.dtype or a.shape != b.shape or not a.equal(b)]
+
+
+def window_check(ll, fold):
+    """The window_call kernel against the plain version on the folds
+    `fold` = (W, NH, S, NR, index_map, nr_w, pair_pr); returns (largest
+    ulp distance, largest absolute difference)."""
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    from dindel_tpu_torch.infer.device_call import window_call as plain
+
+    k, r = ek.window_call(*fold[:4], ll, *fold[4:]), plain(*fold[:4], ll,
+                                                           *fold[4:])
+    sync(ll.device)
+    err = max(float((a - b).abs().max()) if a.numel() else 0.0
+              for a, b in zip(k, r))
+    return max(ulps(a, b) for a, b in zip(k, r)), err
+
+
+def epilogue_edge_case(kw, exact, device):
+    """finish and pair_stats (V = EPI_V and V = 0) against their plain
+    versions at one of K1's EDGE_CASES shapes, on K1's outputs (its
+    unwritten backpointer rows included); returns the mismatches."""
+    import numpy as np
+    import torch
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+
+    args, bounds = edge_inputs(device=device, **kw)
+    B, H_pad, L_pad, numT = kw["B"], kw["H_pad"], kw["L_pad"], kw["numT"]
+    rng = np.random.RandomState(kw["seed"] + 50)
+    S = 2 * (H_pad + 2)
+    dt = args[8].dtype
+
+    def grid(lo, hi):
+        a = np.round(rng.uniform(lo, hi, size=(B, S)) * 4) / 4
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    def flags():
+        return torch.as_tensor(rng.rand(B, L_pad) < 0.8, device=device)
+    fin = dict(b_mid=args[5], hap_len=args[3], read_len=args[4],
+               obs_mid=grid(-2, 0), prior_rmq=grid(-3, 0),
+               prior_hmq=grid(-3, 0))
+    # tables with one read and one hap row per pair
+    t = dict(read_len=args[4], hap_len=args[3],
+             read_idx=torch.arange(B, device=device),
+             hap_idx=torch.arange(B, device=device), read_codes_r=args[6],
+             hap_codes_h=args[7], bqt_r=flags(), q95_r=flags(),
+             log10q_r=torch.as_tensor(-rng.rand(B, L_pad) * 4,
+                                      device=device))
+    dp = pair_hmm_dp(*args, exact_ties=exact, bounds=bounds)
+    k, bad = finish_check(H_pad, L_pad, numT, dp, fin, exact)
+    tabs = stats_tables(t, device, kw["seed"])
+    bad += stats_check(H_pad, L_pad, k[5], k[2], tabs)
+    tabs[-4:] = [x[:, :0].contiguous() for x in tabs[-4:]]
+    bad += [f"{n} (V=0)" for n in stats_check(H_pad, L_pad, k[5], k[2],
+                                              tabs)]
+    return bad
+
+
+# window_call's edge shapes: (windows, NH, S, NR, dtype); one window of
+# each has half its reads
+FOLD_EDGE_CASES = [(1, 1, 1, 1, "float32"), (3, 5, 0, 7, "float32"),
+                   (2, 8, 3, 130, "float64"), (9, 4, 2, 33, "float32")]
+
+
+def window_edge_case(case, device):
+    """window_call against its plain version at one FOLD_EDGE_CASES
+    shape; returns (largest ulp distance, largest absolute difference)."""
+    import numpy as np
+    import torch
+
+    n_w, nh, S, nr, dtype = case
+    rng = np.random.RandomState(nh)
+    dt = getattr(torch, dtype)
+    ll = torch.as_tensor(-rng.gamma(2.0, 40.0, size=n_w * nh * nr),
+                         dtype=dt, device=device)
+    fold = fold_inputs(n_w, nh, nr, S, dt, device, nh)
+    fold[5][n_w - 1] = nr // 2
+    return window_check(ll, fold)
+
+
+def epilogue_edge_phase(device):
+    """K2-K4 against their plain versions at the edge shapes (K1's
+    EDGE_CASES: S_half up to 1024, numT 2..15, b_mid at 0 and at
+    read_len-1, a zero-length hap, float64) in both folds, and
+    window_call at FOLD_EDGE_CASES."""
+    failed = []
+    for name, kw in EDGE_CASES:
+        for exact in (False, True):
+            bad = epilogue_edge_case(kw, exact, device)
+            if bad:
+                failed.append((name, "exact" if exact else "fast", bad))
+    for case in FOLD_EDGE_CASES:
+        u, err = window_edge_case(case, device)
+        if u:
+            failed.append((f"window_call {case}", f"{u} ulps", err))
+    log(f"[epilogue-edge] finish and pair_stats (V=0 and V={EPI_V}) at "
+        f"{len(EDGE_CASES)} shapes x 2 folds, window_call at "
+        f"{len(FOLD_EDGE_CASES)} shapes: failed {failed}")
+    if failed:
+        raise SystemExit(f"epilogue kernels disagree with their plain "
+                         f"versions: {failed}")
+
+
+def epilogue_phase(name, n_windows, seed, device, reps, plain_reps,
+                   nr=NR, dtype="float32"):
+    """K2-K4 against their plain versions on one slab of the DP bench
+    geometry (K1's outputs, `dtype`), in both folds (pair_stats and
+    window_call on the fast fold's outputs, the shipped mode); each
+    timed with CUDA events beside its plain version and its bound.
+    Returns {kernel: row}."""
+    import numpy as np
+    import torch
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+    from dindel_tpu_torch.hmm.finish import finish as plain_finish
+    from dindel_tpu_torch.hmm.pack import tables_to_device
+    from dindel_tpu_torch.hmm.stats import pair_stats as plain_stats
+    from dindel_tpu_torch.infer.device_call import window_call as plain_fold
+
+    pk, args, bounds, fin = dp_inputs(n_windows, seed, device, nr=nr,
+                                      dtype=dtype)
+    B = pk["hap_len"].shape[0]
+    H_pad, L_pad, numT = pk["H_pad"], pk["L_pad"], pk["numT"]
+    S = 2 * (H_pad + 2)
+    dt, size = getattr(torch, dtype), np.dtype(dtype).itemsize
+    rows = {}
+    for exact in (False, True):
+        mode = "exact" if exact else "fast"
+        dp = pair_hmm_dp(*args, exact_ties=exact, bounds=bounds)
+        k, bad = finish_check(H_pad, L_pad, numT, dp, fin, exact)
+        if bad:
+            raise SystemExit(f"finish kernel disagrees with its plain "
+                             f"version: {name} {mode} {bad}")
+        fargs = (H_pad, L_pad, numT, fin["b_mid"], fin["hap_len"], dp[0],
+                 dp[1], fin["obs_mid"], fin["prior_rmq"], fin["prior_hmq"],
+                 dp[2], dp[3])
+        ms = time_ms(lambda: ek.finish(*fargs, exact_ties=exact,
+                                       read_len=fin["read_len"]), reps,
+                     device)
+        plain_ms = time_ms(lambda: plain_finish(*fargs, exact_ties=exact),
+                           plain_reps, device)
+        steps = walked_steps(pk["b_mid"], pk["read_len"], L_pad)
+        b_ms, b_by = finish_bound(B, S, L_pad, steps, size)
+        rows.setdefault("finish", {})[mode] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            max_abs_err=0.0, B=B, S=S, L_pad=L_pad)
+        log(f"[epilogue] {name} B={B} S={S} L_pad={L_pad} {mode}: finish "
+            f"bit-equal to plain; kernel {ms!r} ms, plain {plain_ms!r} ms, "
+            f"bound {b_ms!r} ms ({b_by}, {steps} walked steps), share of "
+            f"the bound {b_ms / ms:.4f}")
+        if exact:
+            continue
+        t = tables_to_device(pk, device)
+        tabs = stats_tables(t, device, seed)
+        bad = stats_check(H_pad, L_pad, k[5], k[2], tabs)
+        if bad:
+            raise SystemExit(f"pair_stats kernel disagrees with its plain "
+                             f"version: {name} {bad}")
+        sargs = (H_pad, L_pad, EPI_V, k[5], *tabs, k[2], 2)
+        ms = time_ms(lambda: ek.pair_stats(*sargs), reps, device)
+        plain_ms = time_ms(lambda: plain_stats(*sargs), plain_reps, device)
+        cols = int(np.minimum(pk["read_len"], L_pad).sum())
+        b_ms, b_by = stats_bound(B, L_pad, EPI_V,
+                                 pk["read_codes_r"].shape[0],
+                                 pk["hap_codes_h"].shape[0], H_pad, cols)
+        rows["pair_stats"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, max_abs_err=0.0, B=B,
+                                  V=EPI_V)
+        log(f"[epilogue] {name} pair_stats V={EPI_V}: bit-equal to plain; "
+            f"kernel {ms!r} ms, plain {plain_ms!r} ms, bound {b_ms!r} ms "
+            f"({b_by}), share of the bound {b_ms / ms:.4f}")
+        fold = fold_inputs(n_windows, NH, nr, EPI_SITES, dt, device, seed)
+        u, err = window_check(k[0], fold)
+        if u:
+            raise SystemExit(f"window_call kernel disagrees with its plain "
+                             f"version: {name} {u} ulps, max abs {err!r}")
+        ms = time_ms(lambda: ek.window_call(*fold[:4], k[0], *fold[4:]),
+                     reps, device)
+        plain_ms = time_ms(lambda: plain_fold(*fold[:4], k[0], *fold[4:]),
+                           plain_reps, device)
+        b_ms, b_by = window_bound(fold[0], NH, EPI_SITES, nr,
+                                  n_windows * nr, size)
+        rows["window_call"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by, max_abs_err=err,
+                                   max_ulps=u, W=fold[0], NH=NH,
+                                   S=EPI_SITES, NR=nr)
+        log(f"[epilogue] {name} window_call W={fold[0]} NH={NH} "
+            f"S={EPI_SITES} NR={nr}: bit-equal to plain; kernel {ms!r} ms, "
+            f"plain {plain_ms!r} ms, bound {b_ms!r} ms ({b_by}), share of "
+            f"the bound {b_ms / ms:.4f}")
+    return rows
+
+
 def sync(device):
     import torch
     if torch.device(device).type == "cuda":
@@ -618,15 +1029,14 @@ def engine_pass(fa, bam, win_files, glf, device, folds=None, em=None,
 
 def slice_phase(d: Path, device, n_var, coverage, read_len):
     import torch
-    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
 
     t0 = time.perf_counter()
     fa, bam, variants = simulate_bench(d, n_var, coverage, read_len)
     log(f"[slice] simulated {n_var} indels, {coverage}x, {read_len} bp in "
         f"{time.perf_counter() - t0:.3f} s")
-    pair_hmm_dp.launches = 0
+    reset_launches()
     wins, glfs, vcf, indels_s = cli_pipeline(d, fa, bam, device)
-    launches = pair_hmm_dp.launches
+    launches = read_launches()
     n_ok, no_nan = glf_rows_ok(glfs)
     recs = vcf_records(vcf)
     planted = {v.pos for v in variants}
@@ -636,8 +1046,9 @@ def slice_phase(d: Path, device, n_var, coverage, read_len):
         f"files; kernel launches {launches}; ok GLF rows {n_ok}; no NaN "
         f"{no_nan}; VCF records {len(recs)}; planted indels recovered "
         f"{hit}/{len(planted)}")
-    if launches <= 0 or n_ok <= 0 or not recs or not no_nan:
+    if launches["pair_hmm_dp"] <= 0 or n_ok <= 0 or not recs or not no_nan:
         raise SystemExit("slice phase failed: launches/rows/calls")
+    check_launches("device_call", launches)
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     wall, st = engine_pass(fa, bam, wins, d / "warm.glf.txt", device)
@@ -822,15 +1233,14 @@ def guard_rescues(fail=True):
 
 def decode_phase(d: Path, fa, bam, wins, device):
     """Phase 7: the full-decode route (--outputRealignedBAM)."""
-    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
 
     d.mkdir()
     sub, n = window_subset(wins, PATH_WINDOWS, d / "win.txt")
-    pair_hmm_dp.launches = 0
+    reset_launches()
     with Spy() as spy:
         wall = indels_cli(fa, bam, sub, d / "out", device, "--doDiploid",
                           "--outputRealignedBAM")
-    launches = pair_hmm_dp.launches
+    launches = read_launches()
     n_bams = len(list(d.glob("out.ra.*.bam")))
     n_ok, no_nan = glf_rows_ok([d / "out.glf.txt"])
     routes = spy.counts
@@ -841,7 +1251,8 @@ def decode_phase(d: Path, fa, bam, wins, device):
         f"device-call slabs {routes['run_slab_stats']}; realigned BAMs "
         f"{n_bams}; kernel launches {launches}; ok GLF rows {n_ok}; no NaN "
         f"{no_nan}")
-    if (launches <= 0 or routes["run_slab_decode"] <= 0
+    check_launches("decode", launches)
+    if (routes["run_slab_decode"] <= 0
             or routes["run_slab_stats"] != 0 or n_bams <= 0 or n_ok <= 0
             or not no_nan):
         raise SystemExit("decode phase failed: launches/routes/BAMs/rows")
@@ -911,14 +1322,13 @@ def glf_mismatches(a: bytes, b: bytes, rtol, atol):
 def pooled_phase(d: Path, fa, bam, wins, device):
     """Phase 9: the pooled caller with the device VB-EM."""
     import torch
-    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
 
     d.mkdir()
     sub, n = window_subset(wins, PATH_WINDOWS, d / "win.txt")
-    pair_hmm_dp.launches = 0
+    reset_launches()
     with Spy() as spy:
         wall = indels_cli(fa, bam, sub, d / "out", device, "--doPooled")
-    launches = pair_hmm_dp.launches
+    launches = read_launches()
     (d / "glfs.txt").write_text(str(d / "out.glf.txt") + "\n")
     run_cli("--analysis", "mergeOutputPooled", "--inputFiles",
             d / "glfs.txt", "--ref", fa, "--outputFile", d / "pooled.vcf",
@@ -930,7 +1340,8 @@ def pooled_phase(d: Path, fa, bam, wins, device):
         f"windows_ok {spy.windows_ok()} in {wall:.3f} s; kernel launches "
         f"{launches}; device EM dispatches {n_em}; VCF records {len(recs)} "
         f"({n_pass} PASS)")
-    if launches <= 0 or n_em <= 0 or not recs:
+    check_launches("pooled", launches)
+    if n_em <= 0 or not recs:
         raise SystemExit("pooled phase failed: launches/EM/VCF")
 
     pooled = dict(do_diploid=False, estimate_hap_freqs=True)
@@ -1022,20 +1433,58 @@ def streaming_kernel(windows, device):
             f"{ms!r} ms per launch, plain {plain_ms!r} ms, bound "
             f"{bound_ms!r} ms ({bound_by}, {steps} state-steps), share of "
             f"the bound {bound_ms / ms:.4f}; bit-equal to plain")
+        out[fold]["finish"] = streaming_finish(pk, args, k, exact, dtype,
+                                               device)
     return out
+
+
+def streaming_finish(pk, args, dp, exact, dtype, device):
+    """The finish kernel at the streaming window's shape (the dense
+    program's call: the host's obs_mid, the pk's prior rows) against its
+    plain version, timed beside it and its bound."""
+    import numpy as np
+    import torch
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    from dindel_tpu_torch.hmm.finish import finish as plain_finish
+    from dindel_tpu_torch.hmm.pack import compute_obs_mid
+
+    H_pad, L_pad, numT = pk["H_pad"], pk["L_pad"], pk["numT"]
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa
+    fin = dict(b_mid=args[5], hap_len=args[3], read_len=args[4],
+               obs_mid=up(compute_obs_mid(pk)), prior_rmq=up(pk["prior_rmq"]),
+               prior_hmq=up(pk["prior_hmq"]))
+    _, bad = finish_check(H_pad, L_pad, numT, dp, fin, exact)
+    if bad:
+        raise SystemExit(f"finish kernel disagrees with its plain version "
+                         f"at the streaming window: {bad}")
+    fargs = (H_pad, L_pad, numT, fin["b_mid"], fin["hap_len"], dp[0], dp[1],
+             fin["obs_mid"], fin["prior_rmq"], fin["prior_hmq"], dp[2],
+             dp[3])
+    ms = time_ms(lambda: ek.finish(*fargs, exact_ties=exact,
+                                   read_len=fin["read_len"]), 50, device)
+    plain_ms = time_ms(lambda: plain_finish(*fargs, exact_ties=exact), 3,
+                       device)
+    B, S = dp[0].shape
+    steps = walked_steps(pk["b_mid"], pk["read_len"], L_pad)
+    b_ms, b_by = finish_bound(B, S, L_pad, steps, np.dtype(dtype).itemsize)
+    log(f"[streaming-kernel] finish at the median window B={B} S={S} "
+        f"{'exact' if exact else 'fast'}: bit-equal to plain; kernel "
+        f"{ms!r} ms, plain {plain_ms!r} ms, bound {b_ms!r} ms ({b_by}), "
+        f"share of the bound {b_ms / ms:.4f}")
+    return dict(B=B, S=S, L_pad=L_pad, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by)
 
 
 def streaming_phase(d: Path, fa, bam, wins, device):
     """Phase 10: the CLI's default engine (streaming)."""
-    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
 
     d.mkdir()
     sub, n = window_subset(wins, PATH_WINDOWS, d / "win.txt")
-    pair_hmm_dp.launches = 0
+    reset_launches()
     with Spy() as spy:
         wall = indels_cli(fa, bam, sub, d / "stream", device, "--doDiploid",
                           "--hmmBackend", "jax", engine=())
-    launches = pair_hmm_dp.launches
+    launches = read_launches()
     scored = spy.counts["windows_scored"]
     n_ok, no_nan = glf_rows_ok([d / "stream.glf.txt"])
     split = {k: round(v, 3) for k, v in spy.split.items()}
@@ -1045,7 +1494,9 @@ def streaming_phase(d: Path, fa, bam, wins, device):
         f"{spy.stage_seconds()}; window_hmm split {split}; windows scored "
         f"{scored}; kernel launches {launches}; ok GLF rows {n_ok}; no NaN "
         f"{no_nan}")
-    if scored <= 0 or launches < scored or n_ok <= 0 or not no_nan:
+    check_launches("streaming_f64", launches)
+    if (scored <= 0 or launches["pair_hmm_dp"] < scored
+            or launches["finish"] < scored or n_ok <= 0 or not no_nan):
         raise SystemExit("streaming phase failed: launches/rows")
     wall_b, st = engine_pass(fa, bam, [sub], d / "batched64.glf.txt", device,
                              folds=False, f64=True)
@@ -1062,13 +1513,13 @@ def streaming_phase(d: Path, fa, bam, wins, device):
     psub, pn = window_subset(wins, PARITY_WINDOWS, d / "parity_win.txt")
     glfs = []
     for dev in (device, "cpu"):
-        pair_hmm_dp.launches = 0
+        reset_launches()
         with Spy() as spy:
             wall = indels_cli(fa, bam, psub, d / f"pallas_{dev}", dev,
                               "--doDiploid", "--hmmBackend", "pallas",
                               engine=())
         if dev == device:
-            f32_launches = pair_hmm_dp.launches
+            f32_launches = read_launches()
             f32_scored = spy.counts["windows_scored"]
         glfs.append((d / f"pallas_{dev}.glf.txt").read_bytes())
         log(f"[streaming-pallas] {dev}: {spy.windows_ok()} windows ok in "
@@ -1076,7 +1527,9 @@ def streaming_phase(d: Path, fa, bam, wins, device):
     log(f"[streaming-pallas] {pn} windows, --hmmBackend pallas (float32, "
         f"fast ties): kernel launches {f32_launches}; GLF {len(glfs[0])} "
         f"bytes identical card vs CPU {glfs[0] == glfs[1]}")
-    if glfs[0] != glfs[1] or f32_launches < f32_scored or f32_scored <= 0:
+    check_launches("streaming_f32", f32_launches)
+    if (glfs[0] != glfs[1] or f32_launches["pair_hmm_dp"] < f32_scored
+            or f32_scored <= 0):
         raise SystemExit("streaming phase failed: pallas card vs CPU")
     faster_windows(d, fa, bam, psub, device)
     return launches, f32_launches, kernel
@@ -1121,15 +1574,14 @@ def faster_windows(d: Path, fa, bam, win_file, device):
 
 def dense_phase(d: Path, fa, bam, wins, lib_file, device):
     """Phase 11: the batched engine's dense insert-prior route."""
-    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
 
     d.mkdir()
     sub, n = window_subset(wins, PATH_WINDOWS, d / "win.txt")
     extra = ("--doDiploid", "--insertPrior", "--libFile", str(lib_file))
-    pair_hmm_dp.launches = 0
+    reset_launches()
     with Spy() as spy:
         wall = indels_cli(fa, bam, sub, d / "out", device, *extra)
-    launches = pair_hmm_dp.launches
+    launches = read_launches()
     routes = spy.counts
     n_ok, no_nan = glf_rows_ok([d / "out.glf.txt"])
     log(f"[dense] CLI --insertPrior --libFile, {n} windows: windows_ok "
@@ -1138,8 +1590,9 @@ def dense_phase(d: Path, fa, bam, wins, lib_file, device):
         f"{routes['run_packed']}, decode {routes['run_slab_decode']}, "
         f"device call {routes['run_slab_stats']}; kernel launches "
         f"{launches}; ok GLF rows {n_ok}; no NaN {no_nan}")
+    check_launches("dense", launches)
     if (routes["run_packed"] <= 0 or routes["run_slab_decode"]
-            or routes["run_slab_stats"] or launches <= 0 or n_ok <= 0
+            or routes["run_slab_stats"] or n_ok <= 0
             or not no_nan):
         raise SystemExit("dense phase failed: routes/launches/rows")
     psub, pn = window_subset(wins, PARITY_WINDOWS, d / "parity_win.txt")
@@ -1194,7 +1647,6 @@ def shards_phase(d: Path, fa, bam, wins, device):
 def mesh_phase(d: Path, fa, bam, wins, device):
     """Phase 13 (C10): the batched engine on a 2x2 mesh."""
     import torch
-    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
     from dindel_tpu_torch.parallel.mesh import dryrun_multichip, make_mesh
 
     d.mkdir()
@@ -1209,11 +1661,11 @@ def mesh_phase(d: Path, fa, bam, wins, device):
     log(f"[mesh] single device: {st1['windows_ok']} windows ok in "
         f"{wall1:.3f} s = {st1['windows_ok'] / wall1:.6g} windows/s; "
         f"slab_dispatch {st1['stage_seconds'].get('slab_dispatch', 0):.3f} s")
-    pair_hmm_dp.launches = 0
+    reset_launches()
     with Spy() as spy:
         wall, st = engine_pass(fa, bam, [sub], d / "mesh.glf.txt", device,
                                mesh=mesh)
-    launches = pair_hmm_dp.launches
+    launches = read_launches()
     sharded = (spy.counts["run_slab_stats"]
                + spy.counts["run_slab_decode_sharded"])
     same = ((d / "mesh.glf.txt").read_bytes()
@@ -1223,11 +1675,14 @@ def mesh_phase(d: Path, fa, bam, wins, device):
     log(f"[mesh] 2x2 mesh over {[str(x) for x in mesh.flat]}, {n} windows: "
         f"windows_ok {st['windows_ok']} in {wall:.3f} s = "
         f"{st['windows_ok'] / wall:.6g} windows/s; stage seconds {stages}; "
-        f"sharded slabs {sharded}, kernel launches {launches} (4 per "
-        f"sharded slab: {launches == 4 * sharded}); slab_dispatch "
+        f"sharded slabs {sharded}, kernel launches {launches} (K1 4 per "
+        f"sharded slab: {launches['pair_hmm_dp'] == 4 * sharded}); "
+        f"slab_dispatch "
         f"{dispatch:.3f} s = {dispatch / max(1, 4 * sharded) * 1e3:.6g} ms "
         f"per shard program; GLF byte-identical to the single device {same}")
-    if not same or sharded <= 0 or launches != 4 * sharded:
+    check_launches("mesh", launches)
+    if (not same or sharded <= 0
+            or launches["pair_hmm_dp"] != 4 * sharded):
         raise SystemExit("mesh phase failed: GLF/launches")
     glfs = []
     for tag, extra in (("cli_plain", ()), ("cli_mesh", ("--mesh", "1x1"))):
@@ -1252,7 +1707,6 @@ def hostshard_phase(d: Path, fa, bam, wins, device):
     """Phase 14 (C11): staging processes feeding this process's card."""
     import numpy as np
     from dindel_tpu_torch.config import Parameters
-    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
     from dindel_tpu_torch.parallel.hostshard import run_hostshard
 
     d.mkdir()
@@ -1285,7 +1739,7 @@ def hostshard_phase(d: Path, fa, bam, wins, device):
     params.do_diploid = True
     params.file_name = str(d / "hs")
     stats = {}
-    pair_hmm_dp.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     run_hostshard([bam], fa, params, [str(f) for f in files],
                   str(d / "hs.glf.txt"), n_procs=4, repeats=2,
@@ -1293,7 +1747,7 @@ def hostshard_phase(d: Path, fa, bam, wins, device):
                   engine_kw=dict(dtype=np.float32, exact_ties=False),
                   device=device)
     wall = time.perf_counter() - t0
-    launches = pair_hmm_dp.launches
+    launches = read_launches()
     same = (d / "hs.glf.txt").read_bytes() == seq
     procs = stats["per_proc"]
     first = [m["repeats"][0] for m in procs]
@@ -1314,7 +1768,8 @@ def hostshard_phase(d: Path, fa, bam, wins, device):
         log(f"[hostshard] staging process {i}: windows_ok "
             f"{pst['windows_ok']}, cuda_initialized "
             f"{pst['cuda_initialized']}, stage seconds {stages}")
-    if (not same or not cli_same or launches <= 0 or stats["slab_rescues"]
+    check_launches("hostshard", launches)
+    if (not same or not cli_same or stats["slab_rescues"]
             or any(pst["cuda_initialized"] or pst["stage_seconds"].get(
                 "slab_rescues", 0) for pst in procs + cli_procs)):
         raise SystemExit("hostshard phase failed: GLF/launches/CUDA in a "
@@ -1341,22 +1796,19 @@ def golden_phase(d: Path, device):
 # ---------------------------------------------------------------------------
 
 
-def main() -> int:
-    sys.path.insert(0, str(REPO))
-    import torch
-    from dindel_tpu_torch.hmm import dp_kernel
-
-    if not torch.cuda.is_available():
-        print("chip_smoke: CUDA is not available", file=sys.stderr)
-        return 1
-    dev = "cuda"
-    log(f"[device] {card_line()}")
-    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+def build_phase():
+    """Both kernel libraries built at once (each compiles its translation
+    units in parallel); prints the build time and ptxas's registers and
+    spills per kernel.  Returns K1's library."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dindel_tpu_torch.hmm import dp_kernel, epilogue_kernel
 
     t0 = time.perf_counter()
-    so = dp_kernel.build()
-    log(f"[build] {so.name} in {time.perf_counter() - t0:.3f} s")
+    with ThreadPoolExecutor(2) as pool:
+        so, epi = [f.result() for f in [pool.submit(dp_kernel.build),
+                                        pool.submit(epilogue_kernel.build)]]
+    log(f"[build] {so.name} and {epi.name} in "
+        f"{time.perf_counter() - t0:.3f} s")
     kern = None
     for line in so.with_suffix(".log").read_text().splitlines():
         m = re.search(r"warpI([fd])Lb([01])ELi(\d+)ELi(\d+)E", line)
@@ -1366,6 +1818,80 @@ def main() -> int:
                     f"R={m.group(3)} numT<={m.group(4)}")
         elif "registers" in line or "spill" in line:
             log(f"[build] {kern}: {line.split(':', 1)[-1].strip()}")
+    for line in epi.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(finish|pair_stats|window_call)_kernel(I([fd])"
+                      r"(Lb([01]))?)?", line)
+        if m and "Compiling entry function" in line:
+            kern = " ".join(x for x in (
+                m.group(1), {"f": "f32", "d": "f64"}.get(m.group(3)),
+                {"0": "fast", "1": "exact"}.get(m.group(5))) if x)
+        elif "registers" in line or "spill" in line:
+            log(f"[build] {kern}: {line.split(':', 1)[-1].strip()}")
+    return so
+
+
+def epilogue_glf_phase(d: Path, fa, bam, wins, device):
+    """The shipped configuration (device folds) over PATH_WINDOWS windows
+    on the card twice: through the epilogue kernels, and with the slab
+    programs' finish, pair_stats and window_call swapped for their plain
+    versions on the card: GLF bytes identical."""
+    from dindel_tpu_torch.hmm import slab
+    from dindel_tpu_torch.hmm.finish import finish
+    from dindel_tpu_torch.hmm.stats import pair_stats
+    from dindel_tpu_torch.infer.device_call import window_call
+
+    d.mkdir()
+    sub, n = window_subset(wins, PATH_WINDOWS, d / "win.txt")
+    glfs = []
+    for tag in ("kernels", "plain"):
+        saved = {k: getattr(slab, k)
+                 for k in ("finish", "pair_stats", "window_call")}
+        if tag == "plain":
+            # the plain finish takes no read_len: it decodes every row
+            slab.finish, slab.pair_stats, slab.window_call = (
+                lambda *a, read_len=None, **k: finish(*a, **k),
+                pair_stats, window_call)
+        try:
+            reset_launches()
+            with Spy() as spy:
+                wall, st = engine_pass(fa, bam, [sub], d / f"{tag}.glf.txt",
+                                       device)
+            launches = read_launches()
+        finally:
+            for k, v in saved.items():
+                setattr(slab, k, v)
+        glfs.append((d / f"{tag}.glf.txt").read_bytes())
+        n_dev = spy.counts["run_slab_stats"]
+        log(f"[epilogue-glf] {tag} on {device}: {st['windows_ok']} windows "
+            f"ok in {wall:.3f} s; device-call slabs {n_dev}, decode slabs "
+            f"{spy.counts['run_slab_decode']}; launches {launches}")
+        if tag == "kernels":
+            if (n_dev <= 0 or launches["finish"] <= 0
+                    or launches["pair_stats"] != n_dev
+                    or launches["window_call"] != n_dev):
+                raise SystemExit("epilogue-glf: the kernels did not run on "
+                                 "every device-call slab")
+        elif any(launches[k] for k in KERNELS[1:]):
+            raise SystemExit("epilogue-glf: the plain pass launched kernels")
+    log(f"[epilogue-glf] {n} windows, device folds: GLF {len(glfs[0])} "
+        f"bytes identical kernels vs plain on the card {glfs[0] == glfs[1]}")
+    if glfs[0] != glfs[1]:
+        raise SystemExit("epilogue-glf: kernels and plain versions differ")
+
+
+def main() -> int:
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = "cuda"
+    log(f"[device] {card_line()}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+
+    so = build_phase()
     # the main path's kernels: float32, S_half 178 -> R = 6, numT 7
     loops = {}
     for fold, tag in (("fast", "IfLb0ELi6ELi7E"), ("exact", "IfLb1ELi6ELi7E")):
@@ -1380,6 +1906,7 @@ def main() -> int:
     log(f"[sass] max SM clock {clock / 1e6:.0f} MHz")
 
     edge_phase(dev)
+    epilogue_edge_phase(dev)
     bench = compare_and_time("bench 8x768", 1, 1, dev, reps=20,
                              plain_reps=3)
     slab = compare_and_time("engine slab 24576", ENGINE_SLAB_WINDOWS, 2,
@@ -1394,6 +1921,10 @@ def main() -> int:
                 f"ALU-pipe bound {t_alu!r} ms (static step-loop counts); "
                 f"kernel {r['ms']!r} ms = {t_issue / r['ms']:.4f} of the "
                 f"issue bound, {t_alu / r['ms']:.4f} of the ALU bound")
+    epi = {"C1": epilogue_phase("bench 8x768", 1, 1, dev, reps=20,
+                                plain_reps=2),
+           "C2": epilogue_phase("engine slab 24576", ENGINE_SLAB_WINDOWS, 2,
+                                dev, reps=20, plain_reps=2)}
     torch.cuda.empty_cache()
 
     closed = guard_rescues()
@@ -1404,6 +1935,7 @@ def main() -> int:
         fa, bam, wins, launches = slice_phase(tmp / "slice", dev,
                                               N_VARIANTS, COVERAGE, READ_LEN)
         parity_phase(tmp / "slice", fa, bam, wins, dev, PARITY_WINDOWS)
+        epilogue_glf_phase(tmp / "epilogue_glf", fa, bam, wins, dev)
         golden_phase(tmp / "golden", dev)
         by_path = dict(device_call=launches)
         by_path["decode"] = decode_phase(tmp / "decode", fa, bam, wins, dev)
@@ -1424,26 +1956,42 @@ def main() -> int:
     fast = slab["fast"]
     log(f"[kernel] bench-geometry fast fold: {bench['fast']['ms']!r} ms, "
         f"plain {bench['fast']['plain_ms']!r} ms")
-    log(json.dumps({"kernels": [{
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    rows = [{
         "name": "pair_hmm_dp",
-        "route": "cuda",
         "source": "dindel_tpu_torch/csrc/pair_hmm_dp.cu",
-        "replaces": "dindel_tpu/hmm/pallas_kernel.py:107",
-        "launches": launches,
-        "launches_by_path": by_path,
         "max_abs_err": max(v["max_abs_err"]
                            for r in (bench, slab, at_window)
                            for v in r.values()),
-        "ms": fast["ms"],
-        "plain_ms": fast["plain_ms"],
-        "bound_ms": fast["bound_ms"],
-        "bound_by": fast["bound_by"],
-        "library_ms": None,  # no single PyTorch call computes this DP
+        **{k: fast[k] for k in keys},
         "at_streaming_window": {
-            fold: {k: r[k] for k in ("B", "H_pad", "L_pad", "ms",
-                                     "plain_ms", "bound_ms", "bound_by")}
+            fold: {k: r[k] for k in ("B", "H_pad", "L_pad", *keys)}
             for fold, r in at_window.items()},
-    }]}))
+    }]
+    epi_src = "dindel_tpu_torch/csrc/slab_epilogue.cu"
+    fin = epi["C2"]["finish"]
+    rows.append({
+        "name": "finish", "source": epi_src, "max_abs_err": 0.0,
+        **{k: fin["fast"][k] for k in keys},
+        "exact": {k: fin["exact"][k] for k in keys},
+        "at_C1": {m: {k: epi["C1"]["finish"][m][k] for k in keys}
+                  for m in ("fast", "exact")},
+        "at_streaming_window": at_window["f64 exact"]["finish"]})
+    for name in ("pair_stats", "window_call"):
+        r = epi["C2"][name]
+        rows.append({
+            "name": name, "source": epi_src,
+            "max_abs_err": max(epi[c][name]["max_abs_err"] for c in epi),
+            **{k: r[k] for k in keys},
+            "at_C1": {k: epi["C1"][name][k] for k in keys}})
+    for row in rows:
+        row.update(route="cuda", replaces=REPLACES[row["name"]],
+                   launches=launches[row["name"]],
+                   launches_by_path={p: n[row["name"]]
+                                     for p, n in by_path.items()},
+                   # no single PyTorch call computes any of these
+                   library_ms=None)
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,8 @@
 ``__graft_entry__.py``.
 
 entry(device="cuda") -> (fn, example_args): a forward step on the
-flagship compute path, the pair-HMM DP (the CUDA kernel on a card, its
-plain version on the CPU) and finish over one realignment window's
+flagship compute path, the pair-HMM DP and finish (the CUDA kernels on
+a card, their plain versions on the CPU) over one realignment window's
 (haplotypes x reads) pairs, with the example arguments as tensors on
 `device`.
 
@@ -31,7 +31,7 @@ def entry(device="cuda"):
     from .device import resolve_device
     from .hmm.dp_kernel import pair_hmm_dp
     from .hmm.dp_ref import dp_bounds
-    from .hmm.finish import finish
+    from .hmm.epilogue_kernel import finish
     from .hmm.pack import compute_obs_mid, pack_pairs
     from .parallel.mesh import synth_windows
 
@@ -56,6 +56,6 @@ def entry(device="cuda"):
             bounds=bounds)
         return finish(H_pad, L_pad, numT, b_mid, hap_len, amid, bmid,
                       obs_mid, prior_rmq, prior_hmq, btf, btb,
-                      exact_ties=True)
+                      exact_ties=True, read_len=read_len)
 
     return fn, tuple(example_args)

@@ -4,8 +4,9 @@
 which it takes only for tensors on the CPU.  For CUDA tensors it
 launches the kernel or raises; there is no fallback.  The kernel is
 built on first use with nvcc into ``dindel_tpu_torch/build/`` (a plain
-C-ABI shared library, loaded with ctypes), keyed by a hash of the
-source and flags; the build needs only the sources in this package.
+C-ABI shared library, loaded with ctypes; nvcc_build.py), keyed by a
+hash of the source and flags; the build needs only the sources in this
+package.
 
 ``pair_hmm_dp.launches`` counts the kernel launches (and nothing
 else), so a run can show that its DP went through the kernel."""
@@ -13,26 +14,16 @@ else), so a run can show that its DP went through the kernel."""
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from ..nvcc_build import NVCC_FLAGS, build_library
 from .dp_ref import check_dp_args, dp_bounds, dp_ref
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "pair_hmm_dp.cu"
-BUILD_DIR = _PKG / "build"
-# -fmad=false: a contracted multiply-add would round once where the
-# reference rounds twice (bit parity with the plain version)
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-fmad=false", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "pair_hmm_dp.cu"
 # one translation unit per (type, fold), compiled in parallel:
 # (entry-point suffix, -D flags)
 VARIANTS = {"f32_fast": ["-DDINDEL_DP_DOUBLE=0", "-DDINDEL_DP_EXACT=0"],
@@ -46,57 +37,12 @@ _LOCK = threading.Lock()
 _LIB = None
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
-                           "build the pair-HMM DP kernel")
-    return path
-
-
 def build() -> Path:
     """Compile the kernel library if it is not built yet; returns its
-    path.  The four translation units compile in parallel, then link
-    into one shared library; nvcc's output (ptxas register/spill report
-    included) is kept beside it as a .log file."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha1(src + repr((NVCC_FLAGS, VARIANTS)).encode()
-                          ).hexdigest()
-    so = BUILD_DIR / f"libpair_hmm_dp_{digest[:16]}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    tag = f"{digest[:16]}.{os.getpid()}"
-    objs = {v: BUILD_DIR / f"pair_hmm_dp_{v}_{tag}.o" for v in VARIANTS}
-    procs = {v: subprocess.Popen([nvcc, *NVCC_FLAGS, *VARIANTS[v], "-c",
-                                  "-o", str(objs[v]), str(SOURCE)],
-                                 stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-             for v in VARIANTS}
-    log, failed = [], []
-    for v, proc in procs.items():
-        out, _ = proc.communicate()
-        log.append(f"== {v}\n{out}")
-        if proc.returncode != 0:
-            failed.append(v)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    if not failed:
-        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
-                              *[str(o) for o in objs.values()]],
-                             capture_output=True, text=True)
-        log.append(f"== link\n{res.stdout}{res.stderr}")
-        if res.returncode != 0:
-            failed.append("link")
-    for o in objs.values():
-        o.unlink(missing_ok=True)
-    so.with_suffix(".log").write_text("".join(log))
-    if failed:
-        raise RuntimeError(f"nvcc failed ({failed}):\n" + "".join(log))
-    os.replace(tmp, so)
-    return so
+    path (nvcc_build.build_library: the four translation units in
+    parallel, the .log beside the library)."""
+    return build_library("pair_hmm_dp", SOURCE, NVCC_FLAGS, VARIANTS,
+                         "the pair-HMM DP kernel")
 
 
 def _lib():

@@ -27,11 +27,9 @@ import torch
 
 from .dp_kernel import pair_hmm_dp
 from .dp_ref import dp_bounds
+from .epilogue_kernel import finish, pair_stats, window_call
 from .expand import expand_compact
-from .finish import finish
 from .pack import _round_up, compute_obs_mid, tables_to_device
-from .stats import pair_stats
-from ..infer.device_call import window_call
 
 
 def run_slab_stats(pk: dict, vtab: dict, callmeta: dict, max_mismatch: int,
@@ -147,16 +145,18 @@ def run_packed(pk: dict, exact_ties: bool, device):
         return t.to(device=device, dtype=dt if dt is not None else t.dtype)
 
     hap_len = up(pk["hap_len"], torch.int32)
+    read_len = up(pk["read_len"], torch.int32)
     b_mid = up(pk["b_mid"], torch.int32)
     alpha_mid, beta_mid, btf, btb = pair_hmm_dp(
-        H_pad, L_pad, numT, hap_len, up(pk["read_len"], torch.int32), b_mid,
+        H_pad, L_pad, numT, hap_len, read_len, b_mid,
         up(pk["read_codes"], torch.uint8), up(pk["hap_codes"], torch.uint8),
         up(pk["eq"]), up(pk["uq"]), up(pk["lpe"]), up(pk["lpn"]),
         pk["scalars"], exact_ties=exact_ties,
         bounds=_bounds(pk))
     out = finish(H_pad, L_pad, numT, b_mid, hap_len, alpha_mid, beta_mid,
                  up(compute_obs_mid(pk)), up(pk["prior_rmq"]),
-                 up(pk["prior_hmq"]), btf, btb, exact_ties=exact_ties)
+                 up(pk["prior_hmq"]), btf, btb, exact_ties=exact_ties,
+                 read_len=read_len)
     return _narrow_map_state(out, H_pad)
 
 
@@ -185,4 +185,4 @@ def _core(pk: dict, t: dict, exact_ties: bool, bounds):
         exact_ties=exact_ties, bounds=bounds)
     return finish(H_pad, L_pad, numT, t["b_mid"], t["hap_len"], alpha_mid,
                   beta_mid, obs_mid, prior_rmq, prior_hmq, btf, btb,
-                  exact_ties=exact_ties)
+                  exact_ties=exact_ties, read_len=t["read_len"])

@@ -1,5 +1,7 @@
-"""dindel_tpu_torch on the card: the CUDA DP kernel against its plain
-PyTorch version, and the slab programs (both routes), the dense program
+"""dindel_tpu_torch on the card: the CUDA DP kernel and the slab
+epilogue's kernels (finish, pair_stats, window_call) against their plain
+PyTorch versions (at the edge shapes, C1 and C2, both dtypes and both
+folds), and the slab programs (both routes), the dense program
 and the per-window backend at a streaming window's shape (float64 exact
 and float32 fast), the pooled VB-EM and both engines on CUDA against
 the CPU; the sharded slab programs on a mesh of the card (and of two
@@ -20,7 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import EDGE_CASES, dp_mismatches, edge_inputs
+from chip_smoke import (EDGE_CASES, FOLD_EDGE_CASES, dp_mismatches,
+                         edge_inputs, epilogue_edge_case, epilogue_phase,
+                         window_edge_case)
 from dindel_tpu_torch.config import ObservationModelParameters, Parameters
 from dindel_tpu_torch.engine.batched import BatchedWindowEngine
 from dindel_tpu_torch.engine.candidates import get_candidates
@@ -125,6 +129,56 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
     args[2] = 16
     with pytest.raises(ValueError, match="numT"):
         pair_hmm_dp(*args, bounds=bounds)
+
+
+@pytest.mark.parametrize("case", [kw for _, kw in EDGE_CASES],
+                         ids=[name for name, _ in EDGE_CASES])
+@pytest.mark.parametrize("exact_ties", [True, False])
+def test_epilogue_kernels_match_plain_at_edge_shapes(cuda, case, exact_ties):
+    """finish (with read_len on the consumed columns, without it on every
+    column) and pair_stats (V = 4 and V = 0) on K1's outputs at K1's
+    edge shapes, kernel vs plain on the card: bit-equal."""
+    assert epilogue_edge_case(case, exact_ties, cuda) == []
+
+
+@pytest.mark.parametrize("case", FOLD_EDGE_CASES)
+def test_window_call_kernel_matches_plain_at_edge_shapes(cuda, case):
+    assert window_edge_case(case, cuda)[0] == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("n_windows", [1, 4], ids=["C1", "C2"])
+def test_epilogue_kernels_match_plain_at_c1_c2(cuda, n_windows, dtype):
+    """C1 (6144 pairs) and C2 (24576), both folds: each kernel bit-equal
+    to its plain version (epilogue_phase raises otherwise), and each
+    wrapper counts its launches."""
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+
+    n0 = [w.launches for w in (ek.finish, ek.pair_stats, ek.window_call)]
+    rows = epilogue_phase(f"C{n_windows}", n_windows, n_windows, cuda,
+                          reps=1, plain_reps=1, dtype=dtype)
+    assert set(rows) == {"finish", "pair_stats", "window_call"}
+    assert rows["window_call"]["max_ulps"] == 0
+    n1 = [w.launches for w in (ek.finish, ek.pair_stats, ek.window_call)]
+    assert all(b > a for a, b in zip(n0, n1))
+
+
+def test_epilogue_kernels_raise_without_fallback(cuda):
+    """What a kernel cannot take raises on the card; nothing falls back
+    to the plain version."""
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+
+    args, bounds = edge_inputs(device=cuda, B=3, H_pad=30, L_pad=16,
+                               numT=7, dtype="float32", seed=1)
+    amid, bmid, btf, btb = dp_ref(*args, bounds=bounds)
+    n0 = ek.finish.launches
+    with pytest.raises(ValueError, match="numT"):
+        ek.finish(30, 16, 16, args[5], args[3], amid, bmid, amid, amid, amid,
+                  btf, btb)
+    with pytest.raises(TypeError, match="obs_mid"):
+        ek.finish(30, 16, 7, args[5], args[3], amid, bmid, amid.double(),
+                  amid, amid, btf, btb)
+    assert ek.finish.launches == n0
 
 
 def _vtab_cm(pk):

@@ -1,0 +1,683 @@
+"""The slab epilogue's kernels (csrc/slab_epilogue.cu: finish, pair_stats,
+window_call) on the CPU.
+
+CUDA cannot run here, so each kernel's algorithm is written below as a
+scalar NumPy walk, one pair (or one output element) at a time in the
+kernel's loop order, and held to the plain PyTorch version and to the
+JAX package (``_finish(bt_codes=True)``, ``_pair_stats``,
+``_window_call`` on the CPU) on seeded inputs: float32 with the fast
+fold and float64 with the exact one (and the other two pairings), V = 0
+and V > 0, b_mid at 0 and at read_len-1, sentinel flanks, and random
+garbage in the backpointer rows and map_state columns no pair consumes.
+The wrappers (hmm/epilogue_kernel.py) must return exactly the plain
+versions' results for CPU tensors and must not count a launch there.
+The kernels themselves are held to the plain versions on the card in
+tests/test_torch_cuda.py and chip_smoke.py.
+
+Tolerances: finish and pair_stats compare exactly (they add, compare
+and decode integers).  The window folds' exp/log compare to 1e-6
+relative in float32 and 1e-12 in float64: NumPy's, torch's and XLA's
+libm differ by ulps."""
+
+import hashlib
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from chip_smoke import edge_inputs
+from dindel_tpu.hmm.batch import _finish, _pair_stats
+from dindel_tpu.infer.device_call import _window_call
+from dindel_tpu_torch import nvcc_build
+from dindel_tpu_torch.config import ObservationModelParameters
+from dindel_tpu_torch.hmm import dp_kernel
+from dindel_tpu_torch.hmm import epilogue_kernel as ek
+from dindel_tpu_torch.hmm.dp_ref import dp_ref
+from dindel_tpu_torch.hmm.finish import finish as plain_finish
+from dindel_tpu_torch.hmm.pack import (merge_compact, pack_pairs_compact,
+                                       pad_compact, tables_to_device)
+from dindel_tpu_torch.hmm.slab import run_slab_decode
+from dindel_tpu_torch.hmm.stats import pair_stats as plain_pair_stats
+from dindel_tpu_torch.infer.device_call import pair_enum
+from dindel_tpu_torch.infer.device_call import window_call as plain_window
+from dindel_tpu_torch.parallel.mesh import synth_windows
+
+torch.set_num_threads(1)
+
+EPS = 1e-10
+NEGBIG = -1.0e30
+MAX_MM = 2
+FIN_NAMES = ("ll", "off_hap", "off_hap_hmq", "ll_off", "ll_on", "map_state")
+STAT_NAMES = ("fb", "lb", "n_bqt", "n_mm_bqt", "m_log_bq", "n_mm_left",
+              "n_mm_right", "num_mm", "has_event", "any_mism", "n_ind",
+              "cov_ok")
+
+
+# ---------------------------------------------------------------------------
+# the kernels' algorithms, one pair at a time
+
+
+def _code(row, cur, SP):
+    x = cur % SP  # Python's % is a floor modulo, as the kernel's floor_mod
+    pack = int(row[x])
+    return x, (pack >> 4 if cur >= SP else pack) & 15
+
+
+def _dec_fwd(row, cur, SP, RO, hl):
+    x, c = _code(row, cur, SP)
+    if cur >= SP:
+        return cur if c == 0 else x
+    if x == RO:
+        return (SP + RO if c == 0 else SP + hl if c == 1
+                else RO if c == 2 else hl)
+    return (SP + max(x - 1, 0) if c == 0 else x if c == 1
+            else max(x - (c - 1), 0))
+
+
+def _dec_bwd(row, cur, SP, RO, hl, numT):
+    x, c = _code(row, cur, SP)
+    if cur >= SP:
+        x1 = x + 1 if x + 1 <= hl else RO
+        return cur if c == 0 else x if c == 1 else x1
+    xy = x + (numT - c)
+    return SP + x if c == 0 else x if c == numT else (xy if xy <= hl else RO)
+
+
+def walk_finish(H_pad, L_pad, numT, b_mid, hap_len, alpha, beta, obs, prm,
+                phm, btf, btb, exact, read_len=None):
+    """finish_kernel: the folds over the states, then the walks."""
+    dt = alpha.dtype.type
+    B = len(b_mid)
+    SP, RO = H_pad + 2, H_pad + 1
+    eps, neginf = dt(EPS), dt(-np.inf)
+    fl = np.empty((3, B), dt)
+    fb = np.empty((2, B), bool)
+    ms = np.empty((B, L_pad), np.int32)
+    for i in range(B):
+        ll = llH = off = on = neginf
+        mr = sm = 0
+        for x in range(2 * SP):
+            base = (alpha[i, x] + obs[i, x]) + beta[i, x]
+            v, w = base + prm[i, x], base + phm[i, x]
+            if exact:
+                if v > ll + eps:
+                    ll, mr = v, x
+                if w > llH + eps:
+                    llH, sm = w, x
+            else:
+                if v > ll or (np.isnan(v) and not np.isnan(ll)):
+                    ll, mr = v, x
+                if w > llH or (np.isnan(w) and not np.isnan(llH)):
+                    llH, sm = w, x
+            if x % SP == 0:
+                off = v if v > off or (not exact and np.isnan(v)) else off
+            elif x % SP != RO:
+                on = v if v > on or (not exact and np.isnan(v)) else on
+        fl[:, i] = ll, off, on
+        fb[:, i] = mr % SP in (0, RO), sm % SP in (0, RO)
+        hl = int(hap_len[i])
+        rl = L_pad if read_len is None else int(read_len[i])
+        a = min(max(int(b_mid[i]), 0), L_pad - 1)
+        ms[i, a] = cur = sm
+        for b in range(a, 0, -1):
+            cur = _dec_fwd(btf[b - 1, i], cur, SP, RO, hl)
+            ms[i, b - 1] = cur
+        cur = sm
+        b = a
+        while b <= min(L_pad - 2, rl - 2):
+            cur = _dec_bwd(btb[b, i], cur, SP, RO, hl, numT)
+            ms[i, b + 1] = cur
+            b += 1
+        ms[i, b + 1:] = cur
+    return fl[0], fb[0], fb[1], fl[1], fl[2], ms
+
+
+def walk_pair_stats(H_pad, L_pad, V, ms, read_len, hap_len, read_idx,
+                    hap_idx, rc_r, hc_h, bqt_r, q95_r, lq_r, v_left, v_right,
+                    v_isdel, v_valid, off_hap_hmq, max_mm):
+    """pair_stats_kernel: one pass over the columns, then the slots."""
+    B = ms.shape[0]
+    SP, RO = H_pad + 2, H_pad + 1
+    ints = np.zeros((8, B), np.int32)
+    mlq_o = np.zeros(B, np.float64)
+    flags = np.zeros((2, B), bool)
+    cov = np.zeros((B, V), bool)
+    for i in range(B):
+        hl, rl = int(hap_len[i]), int(read_len[i])
+        ri, hi = int(read_idx[i]), int(hap_idx[i])
+        rc, hc = rc_r[ri], hc_h[hi]
+
+        def column(b):
+            m = int(ms[i, b])
+            xa = m % SP
+            xs = hl + 1 if xa == RO else xa
+            return m >= SP, xs, 1 <= xs <= hl and b < rl
+
+        fb, lb, n_bqt, n_mm_bqt, n_l, n_r, num_mm, n_ind = (
+            2 ** 31 - 1, -1, 0, 0, 0, 0, 0, 0)
+        has_event = any_mism = has_prev = seen_run = False
+        last_pos, mlq = 0, np.float64(0.0)
+        ins0, xs0, on0 = column(0)
+        for b in range(L_pad):
+            ins1, xs1, on1 = column(b + 1) if b + 1 < L_pad else (
+                False, 0, False)
+            noins_on = on0 and not ins0
+            del_ev = (noins_on and not ins1 and b + 1 < min(rl, L_pad)
+                      and xs1 - xs0 > 1)
+            inhap = ins0 and on0
+            has_event |= inhap or del_ev
+            bqt = False
+            if noins_on:
+                fb, lb = min(fb, xs0 - 1), max(lb, xs0 - 1)
+                bqt = bool(bqt_r[ri, b])
+                mism = rc[b] != hc[min(max(xs0 - 1, 0), H_pad - 1)]
+                n_bqt += bqt
+                n_mm_bqt += mism and bqt
+                n_l += mism and b < 6
+                n_r += mism and b > rl - 6
+                num_mm += mism and bool(q95_r[ri, b])
+                any_mism |= mism
+            mlq = mlq + (lq_r[ri, b] if bqt else np.float64(0.0))
+            entry = inhap and not seen_run
+            seen_run = ins0 and (seen_run or inhap)
+            ev = entry or del_ev
+            n_ind += ev and (not has_prev or xs0 != last_pos)
+            if ev:
+                last_pos = xs0
+            has_prev |= ev
+            ins0, xs0, on0 = ins1, xs1, on1
+        ints[:, i] = (-1 if fb == 2 ** 31 - 1 else fb, lb, n_bqt, n_mm_bqt,
+                      n_l, n_r, num_mm, n_ind)
+        mlq_o[i] = mlq
+        flags[:, i] = has_event, any_mism
+        sel = not off_hap_hmq[i] and not has_event
+        for v in range(V):
+            if not (sel and v_valid[hi, v]):
+                continue
+            left, right = int(v_left[hi, v]), int(v_right[hi, v])
+            isdel = bool(v_isdel[hi, v])
+            c_noins = nmm = 0
+            has_lo = has_ro = False
+            for b in range(min(rl, L_pad)):
+                ins, xs, on = column(b)
+                noins_on = on and not ins
+                hp = xs - 1 if noins_on else (-3 if xs == 0 else -4)
+                if hp < left or hp > right:
+                    continue
+                wrap = hp if hp >= 0 else hl + hp
+                hchar = hc[min(max(wrap, 0), H_pad - 1)]
+                c_noins += noins_on
+                has_lo |= hp == -3
+                has_ro |= hp == -4
+                nmm += hchar != rc[b] and (not isdel or hchar != ord("N"))
+            c_size = c_noins + has_lo + has_ro
+            ln = right - left + 1
+            ok_mm = nmm <= max_mm
+            cov[i, v] = (c_size >= ln and ok_mm) if isdel else (
+                ok_mm and c_size == ln)
+    return (ints[0], ints[1], ints[2], ints[3], mlq_o, ints[4], ints[5],
+            ints[6], flags[0], flags[1], ints[7], cov)
+
+
+def walk_window_call(W, NH, S, NR, ll, index_map, nr_w, pair_pr):
+    """window_call_kernel: one sequential fold per output element."""
+    dt = pair_pr.dtype.type
+    h1v, h2v = pair_enum(NH)
+    NP = len(h1v)
+    llc = ll.astype(dt)
+    log5, one, zero = dt(np.log(0.5)), dt(1.0), dt(0.0)
+    base = np.empty((W, NP), dt)
+    site = np.empty((W, S, NP), dt)
+    for w in range(W):
+        for j in range(S + 1):
+            for k in range(NP):
+                acc = zero if j == 0 else pair_pr[w, j - 1, k]
+                for r in range(NR):
+                    t = zero
+                    if r < nr_w[w]:
+                        a = llc[index_map[w, h1v[k], r]]
+                        b = llc[index_map[w, h2v[k], r]]
+                        m, mn = max(a, b), min(a, b)
+                        t = log5 + (m + np.log(one + np.exp(mn - m)))
+                    acc = acc + t
+                if j == 0:
+                    base[w, k] = acc
+                else:
+                    site[w, j - 1, k] = acc
+    return base, site
+
+
+# ---------------------------------------------------------------------------
+# inputs
+
+
+def _garbage_bt(btf, btb, b_mid, read_len, rng):
+    """Copies of btf/btb with random bytes in every row a pair does not
+    consume: btf rows >= b_mid, btb rows < b_mid or > read_len-2."""
+    f, g = btf.copy(), btb.copy()
+    rows = np.arange(f.shape[0])
+    for i, (bm, rl) in enumerate(zip(b_mid, read_len)):
+        fr = rows >= bm
+        br = (rows < bm) | (rows > rl - 2)
+        f[fr, i] = rng.randint(0, 256, size=(fr.sum(), f.shape[2]))
+        g[br, i] = rng.randint(0, 256, size=(br.sum(), g.shape[2]))
+    return f, g
+
+
+def finish_case(dtype, exact, b_mid, seed):
+    """DP outputs of random inputs on a 0.25 grid (ties in the folds),
+    obs and prior rows on the same grid with NEGBIG states, and
+    backpointer rows with garbage outside each pair's walk."""
+    H_pad, L_pad, numT = 46, 24, 7
+    args, bounds = edge_inputs(B=9, H_pad=H_pad, L_pad=L_pad, numT=numT,
+                               dtype=dtype, seed=seed, device="cpu",
+                               b_mid=b_mid)
+    amid, bmid, btf, btb = [t.numpy() for t in dp_ref(
+        *args, exact_ties=exact, bounds=bounds)]
+    rng = np.random.RandomState(seed + 100)
+    B, S = amid.shape
+    dt = amid.dtype
+
+    def grid(lo, hi):
+        a = np.round(rng.uniform(lo, hi, size=(B, S)) * 4) / 4
+        a[rng.rand(B, S) < 0.1] = NEGBIG
+        return a.astype(dt)
+
+    hl, rl, bm = (args[i].numpy() for i in (3, 4, 5))
+    btf, btb = _garbage_bt(btf, btb, bm, rl, rng)
+    obs, prm, phm = grid(-2, 0), grid(-3, 0), grid(-3, 0)
+    if dt == np.float64:
+        # near-ties within EPS after the maximum, where the exact fold
+        # keeps the first state and the fast fold takes the later one
+        base = (amid + obs) + bmid
+        for pr in (prm, phm):
+            for i in range(0, B, 2):
+                x1 = int(np.argmax(base[i] + pr[i]))
+                x2 = x1 + 1 + rng.randint(S - x1 - 1) if x1 < S - 1 else x1
+                pr[i, x2] = (base[i, x1] + pr[i, x1] + 5e-11) - base[i, x2]
+    return dict(H_pad=H_pad, L_pad=L_pad, numT=numT, b_mid=bm, hap_len=hl,
+                read_len=rl, alpha=amid, beta=bmid, obs=obs, prm=prm,
+                phm=phm, btf=btf, btb=btb)
+
+
+def _fin_args(c, to):
+    return (c["H_pad"], c["L_pad"], c["numT"], to(c["b_mid"]),
+            to(c["hap_len"]), to(c["alpha"]), to(c["beta"]), to(c["obs"]),
+            to(c["prm"]), to(c["phm"]), to(c["btf"]), to(c["btb"]))
+
+
+def _plain_finish(c, exact):
+    return [o.numpy() for o in plain_finish(*_fin_args(c, torch.from_numpy),
+                                            exact_ties=exact)]
+
+
+def _valid(c):
+    return np.arange(c["L_pad"])[None, :] < c["read_len"][:, None]
+
+
+def _assert_finish_equal(a, b, valid=None):
+    for nm, x, y in zip(FIN_NAMES, a, b):
+        if nm == "map_state" and valid is not None:
+            x, y = np.where(valid, x, -1), np.where(valid, y, -1)
+        assert x.dtype == y.dtype and np.array_equal(x, y), nm
+
+
+FOLDS = [(np.float32, False), (np.float64, True), (np.float32, True),
+         (np.float64, False)]
+FOLD_IDS = ["f32-fast", "f64-exact", "f32-exact", "f64-fast"]
+
+
+@pytest.mark.parametrize("b_mid", ["rand", "zero", "last"])
+@pytest.mark.parametrize("dtype,exact", FOLDS, ids=FOLD_IDS)
+def test_finish_walk_matches_plain_and_jax(dtype, exact, b_mid):
+    c = finish_case("float32" if dtype == np.float32 else "float64", exact,
+                    b_mid, seed=3)
+    plain = _plain_finish(c, exact)
+    valid = _valid(c)
+    # the kernel with read_len walks only consumed rows
+    walk = walk_finish(*_fin_args(c, lambda a: a), exact,
+                       read_len=c["read_len"])
+    _assert_finish_equal(walk, plain, valid)
+    # without read_len it walks every row as the plain version does: equal
+    # everywhere, garbage columns included (the floor modulo)
+    _assert_finish_equal(walk_finish(*_fin_args(c, lambda a: a), exact),
+                         plain)
+    want = [np.asarray(o) for o in _finish(
+        c["H_pad"], c["L_pad"], jnp.asarray(c["b_mid"]),
+        *[jnp.asarray(c[k]) for k in ("alpha", "beta", "obs", "prm", "phm",
+                                      "btf", "btb")],
+        exact_ties=exact, bt_codes=True, numT=c["numT"],
+        hap_len=jnp.asarray(c["hap_len"]))]
+    for nm, w, p in zip(FIN_NAMES, want, plain):
+        if nm == "map_state":
+            w, p = np.where(valid, w, -1), np.where(valid, p, -1)
+        assert np.array_equal(w, p), nm
+    if dtype == np.float64:  # the near-ties tell the two folds apart
+        other = _plain_finish(c, not exact)
+        assert not np.array_equal(plain[0], other[0])
+    assert b_mid != "zero" or (c["b_mid"] == 0).all()
+    assert b_mid != "last" or (c["b_mid"] == c["read_len"] - 1).all()
+
+
+@pytest.mark.parametrize("dtype,exact", FOLDS[:2], ids=FOLD_IDS[:2])
+def test_finish_consumed_columns_ignore_garbage(dtype, exact):
+    c = finish_case("float32" if dtype == np.float32 else "float64", exact,
+                    "rand", seed=4)
+    a = _plain_finish(c, exact)
+    rng = np.random.RandomState(9)
+    c["btf"], c["btb"] = _garbage_bt(c["btf"], c["btb"], c["b_mid"],
+                                     c["read_len"], rng)
+    b = _plain_finish(c, exact)
+    _assert_finish_equal(a, b, _valid(c))
+    # and the garbage does reach the columns past the reads
+    assert not np.array_equal(a[5], b[5])
+
+
+def _slab(dtype=np.float64, H_pad=78):
+    windows = synth_windows(3, nh=3, nr=12, H=60, L=30, seed=2)
+    params = ObservationModelParameters()
+    return pad_compact(merge_compact([
+        pack_pairs_compact(haps, reads, hs, params, dtype, H_pad=H_pad,
+                           L_pad=32)
+        for haps, reads, hs in windows]))
+
+
+def _vtab(pk, V, seed=5):
+    """Slots with mixed widths: flanks at the LO/RO sentinel codes (-3,
+    -4), reaching below 0 (the negative-index wrap), invalid slots."""
+    rng = np.random.RandomState(seed)
+    n = pk["hap_codes_h"].shape[0]
+    left = rng.randint(-4, 50, size=(n, V)).astype(np.int32)
+    if V:
+        left[::3, 0] = -4
+        left[1::3, 0] = -3
+    return dict(v_left_h=left,
+                v_right_h=(left + rng.randint(0, 8, size=(n, V))
+                           ).astype(np.int32),
+                v_isdel_h=rng.rand(n, V) < 0.5,
+                v_valid_h=rng.rand(n, V) < 0.8)
+
+
+STAT_TABLES = ("read_len", "hap_len", "read_idx", "hap_idx", "read_codes_r",
+               "hap_codes_h", "bqt_r", "q95_r", "log10q_r")
+VKEYS = ("v_left_h", "v_right_h", "v_isdel_h", "v_valid_h")
+
+
+def _stats_case(exact, V, seed=7, kind="decoded"):
+    """A slab's MAP paths ("decoded": the plain finish's on the CPU), or
+    random states with random base-quality flags ("random": many indel
+    events, repeated event positions, masked m_log_bq terms)."""
+    pk = _slab()
+    out = run_slab_decode(pk, exact, "cpu")
+    ms = out[5].to(torch.int32).numpy().copy()
+    rng = np.random.RandomState(seed)
+    if kind == "random":
+        S = 2 * (pk["H_pad"] + 2)
+        runs = rng.randint(0, S, size=ms.shape)
+        # mostly steps along the hap, with jumps and insert runs
+        walk = np.cumsum(rng.choice([1, 1, 1, 0, 2, 3], size=ms.shape),
+                         axis=1) + rng.randint(0, 20, size=(ms.shape[0], 1))
+        ms = np.where(rng.rand(*ms.shape) < 0.15, runs, walk).astype(np.int32)
+        pk = dict(pk, bqt_r=pk["bqt_r"] & (rng.rand(*pk["bqt_r"].shape) < .7),
+                  q95_r=pk["q95_r"] & (rng.rand(*pk["q95_r"].shape) < .7))
+    # garbage past each read (the kernel holds a state there; the plain
+    # finish decodes unwritten rows)
+    past = np.arange(pk["L_pad"])[None, :] >= pk["read_len"][:, None]
+    ms[past] = rng.randint(-40, 2 * (pk["H_pad"] + 2) + 40, size=past.sum())
+    return pk, ms, out[2].numpy(), _vtab(pk, V)
+
+
+def _plain_stats(pk, ms, off_hmq, vtab, V):
+    t = tables_to_device(pk, "cpu")
+    return [o.numpy() for o in plain_pair_stats(
+        pk["H_pad"], pk["L_pad"], V, torch.from_numpy(ms),
+        *[t[k] for k in STAT_TABLES],
+        *[torch.from_numpy(vtab[k]) for k in VKEYS],
+        torch.from_numpy(off_hmq), MAX_MM)]
+
+
+@pytest.mark.parametrize("kind", ["decoded", "random"])
+@pytest.mark.parametrize("V", [0, 4])
+@pytest.mark.parametrize("exact", [False, True])
+def test_pair_stats_walk_matches_plain_and_jax(exact, V, kind):
+    pk, ms, off_hmq, vtab = _stats_case(exact, V, kind=kind)
+    plain = _plain_stats(pk, ms, off_hmq, vtab, V)
+    walk = walk_pair_stats(pk["H_pad"], pk["L_pad"], V, ms,
+                           *[np.asarray(pk[k]) for k in STAT_TABLES],
+                           *[vtab[k] for k in VKEYS], off_hmq, MAX_MM)
+    want = _pair_stats(pk["H_pad"], pk["L_pad"], V, jnp.asarray(ms),
+                       *[jnp.asarray(pk[k]) for k in STAT_TABLES],
+                       *[jnp.asarray(vtab[k]) for k in VKEYS],
+                       jnp.asarray(off_hmq), jnp.asarray(np.int32(MAX_MM)))
+    for nm, p, w, j in zip(STAT_NAMES, plain, walk, want):
+        assert p.shape == w.shape and np.array_equal(p, w), nm
+        assert np.array_equal(p, np.asarray(j)), nm
+    assert plain[-1].shape == (ms.shape[0], V)
+    if V and kind == "decoded":
+        assert plain[-1].any()  # the coverage fold is exercised
+    assert plain[10].any() and plain[8].any()  # n_ind, has_event
+    if kind == "random":  # repeated event positions are collapsed
+        assert (plain[10] > 0).any() and not np.array_equal(
+            plain[10], _events(pk, ms))
+
+
+def _events(pk, ms):
+    """Indel-event entries per pair, repeats included (what n_ind would
+    count without collapsing equal positions)."""
+    SP, RO = pk["H_pad"] + 2, pk["H_pad"] + 1
+    out = []
+    for i in range(ms.shape[0]):
+        hl, rl = int(pk["hap_len"][i]), int(pk["read_len"][i])
+        xa = ms[i] % SP
+        xs = np.where(xa == RO, hl + 1, xa)
+        ins = ms[i] >= SP
+        on = (xs >= 1) & (xs <= hl) & (np.arange(len(xs)) < rl)
+        n, seen = 0, False
+        for b in range(len(xs)):
+            inhap = ins[b] and on[b]
+            entry = inhap and not seen
+            seen = ins[b] and (seen or inhap)
+            dl = (b + 1 < min(rl, len(xs)) and on[b] and not ins[b]
+                  and not ins[b + 1] and xs[b + 1] - xs[b] > 1)
+            n += entry or dl
+        out.append(n)
+    return np.array(out, np.int32)
+
+
+def test_pair_stats_ignore_columns_past_the_read():
+    pk, ms, off_hmq, vtab = _stats_case(False, 4)
+    a = _plain_stats(pk, ms, off_hmq, vtab, 4)
+    past = np.arange(pk["L_pad"])[None, :] >= pk["read_len"][:, None]
+    ms2 = ms.copy()
+    ms2[past] = np.random.RandomState(1).randint(0, 2 * (pk["H_pad"] + 2),
+                                                 size=past.sum())
+    b = _plain_stats(pk, ms2, off_hmq, vtab, 4)
+    for nm, x, y in zip(STAT_NAMES, a, b):
+        assert np.array_equal(x, y), nm
+
+
+def _window_case(dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    W, NH, S, NR = 3, 4, 3, 16
+    NP = len(pair_enum(NH)[0])
+    ll = -rng.gamma(2.0, 40.0, size=W * NH * NR).astype(np.float32)
+    index_map = np.zeros((W, NH, NR), np.int32)
+    nr_w = np.array([NR, 11, 0], np.int32)
+    for w in range(W):
+        index_map[w, :, :nr_w[w]] = (w * NH * NR + np.arange(NH)[:, None]
+                                     * NR + np.arange(nr_w[w])[None, :])
+    pair_pr = (-rng.rand(W, S, NP) * 10).astype(dtype)
+    pair_pr[0, 0, 0] = -0.0
+    return W, NH, S, NR, ll, index_map, nr_w, pair_pr
+
+
+@pytest.mark.parametrize("dtype,rtol", [(np.float32, 1e-6),
+                                        (np.float64, 1e-12)])
+def test_window_call_walk_matches_plain_and_jax(dtype, rtol):
+    W, NH, S, NR, ll, im, nr_w, pp = _window_case(dtype)
+    pb, ps = plain_window(W, NH, S, NR, torch.from_numpy(ll),
+                          torch.from_numpy(im), torch.from_numpy(nr_w),
+                          torch.from_numpy(pp))
+    wb, ws = walk_window_call(W, NH, S, NR, ll, im, nr_w, pp)
+    jb, js = _window_call(W, NH, S, NR, jnp.asarray(ll), jnp.asarray(im),
+                          jnp.asarray(nr_w), jnp.asarray(pp))
+    for got in ((wb, ws), (np.asarray(jb), np.asarray(js))):
+        np.testing.assert_allclose(got[0], pb.numpy(), rtol=rtol)
+        np.testing.assert_allclose(got[1], ps.numpy(), rtol=rtol)
+    assert wb.dtype == pb.numpy().dtype == dtype
+    # a window without reads keeps its seeds: base 0, site = pair_pr
+    assert (pb[2] == 0).all() and torch.equal(ps[2], torch.from_numpy(pp[2]))
+
+
+# ---------------------------------------------------------------------------
+# the wrappers on the CPU
+
+
+def _launches():
+    return (ek.finish.launches, ek.pair_stats.launches,
+            ek.window_call.launches)
+
+
+@pytest.mark.parametrize("dtype,exact", FOLDS[:2], ids=FOLD_IDS[:2])
+def test_wrappers_on_cpu_are_the_plain_versions(dtype, exact):
+    before = _launches()
+    c = finish_case("float32" if dtype == np.float32 else "float64", exact,
+                    "rand", seed=5)
+    args = _fin_args(c, torch.from_numpy)
+    want = plain_finish(*args, exact_ties=exact)
+    for kw in ({}, {"read_len": torch.from_numpy(c["read_len"])}):
+        got = ek.finish(*args, exact_ties=exact, **kw)
+        for nm, g, w in zip(FIN_NAMES, got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w), nm
+
+    pk, ms, off_hmq, vtab = _stats_case(exact, 4)
+    t = tables_to_device(pk, "cpu")
+    sargs = (pk["H_pad"], pk["L_pad"], 4, torch.from_numpy(ms),
+             *[t[k] for k in STAT_TABLES],
+             *[torch.from_numpy(vtab[k]) for k in VKEYS],
+             torch.from_numpy(off_hmq), MAX_MM)
+    for g, w in zip(ek.pair_stats(*sargs), plain_pair_stats(*sargs)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+    W, NH, S, NR, ll, im, nr_w, pp = _window_case(dtype)
+    wargs = (W, NH, S, NR, torch.from_numpy(ll), torch.from_numpy(im),
+             torch.from_numpy(nr_w), torch.from_numpy(pp))
+    for g, w in zip(ek.window_call(*wargs), plain_window(*wargs)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    assert _launches() == before
+
+
+def test_wrappers_refuse_other_devices():
+    meta = torch.empty((2, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ek.window_call(1, 1, 1, 1, torch.empty(2, device="meta"),
+                       torch.empty((1, 1, 1), dtype=torch.int32,
+                                   device="meta"),
+                       torch.empty(1, dtype=torch.int32, device="meta"),
+                       torch.empty((1, 1, 1), device="meta"))
+    with pytest.raises(ValueError, match="several devices"):
+        ek.finish(2, 3, 7, torch.zeros(2, dtype=torch.int32),
+                  torch.zeros(2, dtype=torch.int32), meta, meta, meta, meta,
+                  meta, torch.zeros((2, 2, 4), dtype=torch.uint8),
+                  torch.zeros((2, 2, 4), dtype=torch.uint8))
+
+
+@pytest.mark.parametrize("module", [ek, dp_kernel], ids=["epilogue", "dp"])
+def test_build_without_nvcc_raises(module, monkeypatch, tmp_path):
+    monkeypatch.setattr(nvcc_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(nvcc_build, "CUDA_NVCC", str(tmp_path / "nvcc"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        nvcc_build.build_library("probe", module.SOURCE,
+                                 nvcc_build.NVCC_FLAGS, module.VARIANTS,
+                                 "the probe", build_dir=tmp_path / "build")
+    assert not (tmp_path / "build").exists()
+
+
+def test_library_names_follow_the_source(tmp_path):
+    """The library is keyed by a hash of its source, flags and variants,
+    and an existing library is returned without a build (no nvcc here)."""
+    src = tmp_path / "k.cu"
+    src.write_text("// a kernel\n")
+    digest = hashlib.sha1(src.read_bytes() + repr(
+        (list(nvcc_build.NVCC_FLAGS), {"a": ["-DA"]})).encode()).hexdigest()
+    so = tmp_path / "build" / f"libk_{digest[:16]}.so"
+    so.parent.mkdir()
+    so.write_bytes(b"")
+    assert nvcc_build.build_library("k", src, nvcc_build.NVCC_FLAGS,
+                                    {"a": ["-DA"]}, "k",
+                                    build_dir=tmp_path / "build") == so
+
+
+def _ctype_of(a):
+    import ctypes
+    if a is None or isinstance(a, torch.Tensor):
+        return ctypes.c_void_p
+    return ctypes.c_double if isinstance(a, float) else ctypes.c_int
+
+
+@pytest.mark.parametrize("dtype,exact", FOLDS, ids=FOLD_IDS)
+def test_launch_arguments_match_the_entry_points(dtype, exact):
+    """What each wrapper hands its entry point on a card, built here from
+    CPU tensors: the argument checks pass, the arguments match the C
+    signature one for one (the stream is appended at the launch), and
+    the outputs have the plain versions' shapes and dtypes."""
+    c = finish_case("float32" if dtype == np.float32 else "float64", exact,
+                    "rand", seed=6)
+    args = _fin_args(c, torch.from_numpy)
+    calls = [(ek.finish_args(*args, exact, torch.from_numpy(c["read_len"])),
+              plain_finish(*args, exact_ties=exact)),
+             (ek.finish_args(*args, exact), None)]
+    pk, ms, off_hmq, vtab = _stats_case(exact, 4)
+    t = tables_to_device(pk, "cpu")
+    sargs = (pk["H_pad"], pk["L_pad"], 4, torch.from_numpy(ms),
+             *[t[k] for k in STAT_TABLES],
+             *[torch.from_numpy(vtab[k]) for k in VKEYS],
+             torch.from_numpy(off_hmq), MAX_MM)
+    calls.append((ek.pair_stats_args(*sargs), plain_pair_stats(*sargs)))
+    W, NH, S, NR, ll, im, nr_w, pp = _window_case(dtype)
+    wargs = (W, NH, S, NR, torch.from_numpy(ll), torch.from_numpy(im),
+             torch.from_numpy(nr_w), torch.from_numpy(pp))
+    calls.append((ek.window_call_args(*wargs), plain_window(*wargs)))
+    for (entry, cargs, outs), want in calls:
+        sig = ek.SIGNATURES[entry]
+        assert [_ctype_of(a) for a in cargs] == sig[:-1], entry
+        if want is not None:
+            assert [(o.shape, o.dtype) for o in outs] == [
+                (w.shape, w.dtype) for w in want], entry
+    assert calls[0][0][0] == ("dindel_finish_"
+                              f"{'f32' if dtype == np.float32 else 'f64'}_"
+                              f"{'exact' if exact else 'fast'}")
+    assert calls[1][0][1][2] is None  # no read_len: the full walk
+
+
+def test_launch_argument_checks():
+    c = finish_case("float32", False, "rand", seed=6)
+    args = list(_fin_args(c, torch.from_numpy))
+    bad = list(args)
+    bad[5] = bad[5].double()  # alpha_mid of another dtype than the rows
+    with pytest.raises(TypeError, match="beta_mid"):
+        ek.finish_args(*bad)
+    bad = list(args)
+    bad[6] = bad[6].t().contiguous().t()  # beta_mid not contiguous
+    with pytest.raises(ValueError, match="beta_mid: not contiguous"):
+        ek.finish_args(*bad)
+    bad = list(args)
+    bad[10] = bad[10][:-1]  # btf short of a row
+    with pytest.raises(ValueError, match="btf: shape"):
+        ek.finish_args(*bad)
+    with pytest.raises(ValueError, match="numT"):
+        ek.finish_args(*args[:2], 16, *args[3:])
+    W, NH, S, NR, ll, im, nr_w, pp = _window_case(np.float32)
+    with pytest.raises(TypeError, match="window_call: dtype"):
+        ek.window_call_args(W, NH, S, NR, torch.from_numpy(ll),
+                            torch.from_numpy(im), torch.from_numpy(nr_w),
+                            torch.from_numpy(pp).half())
+    pk, ms, off_hmq, vtab = _stats_case(False, 4)
+    t = tables_to_device(pk, "cpu")
+    tabs = [t[k] for k in STAT_TABLES]
+    tabs[-1] = tabs[-1].float()  # log10q_r must be float64
+    with pytest.raises(TypeError, match="log10q_r"):
+        ek.pair_stats_args(pk["H_pad"], pk["L_pad"], 4, torch.from_numpy(ms),
+                           *tabs, *[torch.from_numpy(vtab[k]) for k in VKEYS],
+                           torch.from_numpy(off_hmq), MAX_MM)
