@@ -25,15 +25,22 @@ Phases, in order; any failure exits non-zero:
    then K2-K4 against their plain versions on K1's outputs: at K1's edge
    shapes in both folds (finish with read_len on the consumed columns
    and without it on every column; pair_stats with V = 4 and V = 0;
-   window_call at chip_smoke.FOLD_EDGE_CASES), and at C1 and C2 in both
-   folds, all bit-equal, each timed with CUDA events beside its plain
-   version and its bound;
+   window_call at chip_smoke.FOLD_EDGE_CASES), on rows that break a
+   wrong combine (SPECIALS: ties and near-ties across lanes, NaN, +-0.0
+   at the maximum, all -inf; window_call with NaN terms, signed-zero
+   seeds and nr_w outside [0, NR]), and at C1 and C2 in both folds, all
+   bit-equal (NaN equal to NaN), each timed with CUDA events beside its
+   plain version and its bound; K2 and K4 also by the host clock and
+   by their own device time (torch.profiler), beside an empty kernel's
+   launch through the same ctypes path (the launch floor);
 4. the slice at realistic size: 360 planted indels, 30x, 100 bp reads
    (seed 3), through the CLI entry points getCIGARindels -> makeWindows
    -> indels --doDiploid --engine batched --hmmBackend pallas --device
    cuda -> mergeOutputDiploid, with the kernel's launch count read
    around the indels run; then a warm pass through the engine (windows/s,
-   stage seconds, peak device memory);
+   stage seconds, peak device memory); then K2 and K4 at the run's own
+   first slab (its B, H_pad, L_pad, W, NH, S, NR logged): against their
+   plain versions, timed as in phase 3;
 5. parity: the first windows of that run on the card and on the CPU
    (plain versions), host folds: GLF bytes identical; then the first
    120 windows with device folds on the card through K2-K4 and through
@@ -98,7 +105,9 @@ run (REQUIRED) that never launched fails it.  The line before the last
 is the kernel table as JSON, K1-K4, each with its launches on the main
 path (the device-call route of phase 4) and on each path (device call,
 decode, pooled, streaming float64 and float32, dense, mesh,
-hostshard); the last line is {"ok": true, "device": {...}}.  Needs
+hostshard); K2 and K4 also with their host and device times, their
+times at the main path's first slab and ptxas's report, K4 with the
+launch floor; the last line is {"ok": true, "device": {...}}.  Needs
 nothing but the repository, the CUDA toolkit and PyTorch; imports no
 JAX."""
 
@@ -722,6 +731,166 @@ FOLD_EDGE_CASES = [(1, 1, 1, 1, "float32"), (3, 5, 0, 7, "float32"),
                    (2, 8, 3, 130, "float64"), (9, 4, 2, 33, "float32")]
 
 
+# finish's rows that break a wrong combine (special_rows' kinds)
+SPECIALS = ("ties", "near", "nan", "pm0", "ninf")
+
+
+def special_rows(kind, B, S, dt, rng):
+    """(B, S) rows of v that break a wrong combine; row i moves the
+    pattern i columns right, so its columns fall in other lanes.
+    ties: the maximum at three columns in three sub-rows (and a tie on
+    the xm == 0 columns); near: values within EPS of each other in
+    several lanes and sub-rows (the exact fold keeps an earlier one than
+    the fast fold); nan: NaN in several lanes (and at xm == 0); pm0:
+    -0.0 and +0.0 at the maximum, in both orders (row parity), on-hap and
+    at xm == 0; ninf: every value -inf, and -inf with one NaN."""
+    import numpy as np
+    from dindel_tpu_torch.hmm.reference import EPS
+
+    SP = S // 2
+    M = dt(-1.0)
+    eps = dt(EPS)
+    rows = (np.round(rng.uniform(-6, -1.25, size=(B, S)) * 4) / 4).astype(dt)
+    for i in range(B):
+        row = rows[i]
+
+        def put(col, val):
+            row[(col + i) % S] = val
+        if kind == "ties":
+            for col in (5, 37, 70):
+                put(col, M)
+            row[0] = row[SP] = dt(-1.5)
+        elif kind == "near":
+            for col, k in ((7, 0.0), (38, 0.6), (70, 1.1), (71, 1.7),
+                           (90 % S, 2.0)):
+                put(col, M + dt(k) * eps)
+        elif kind == "nan":
+            for col in (9, 41, 80 % S):
+                put(col, dt(np.nan))
+            row[SP] = dt(np.nan)
+        elif kind == "pm0":
+            z = (dt(-0.0), dt(0.0)) if i % 2 else (dt(0.0), dt(-0.0))
+            put(4, z[0])
+            put(50 % S, z[1])
+            row[0], row[SP] = z
+        elif kind == "ninf":
+            row[:] = -np.inf
+            if i % 2:
+                put(33, dt(np.nan))
+    return rows
+
+
+def window_special_case(dtype, seed=1):
+    """window_call's inputs with the cases a wrong loop breaks (numpy):
+    five windows of 5 haps x 19 reads (a multiple of no chunk), nr_w =
+    NR, 11, 0, above NR and below 0, -inf ll values (NaN terms), and
+    -0.0 seeds in the windows of NR and of 0 reads."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    W, NH, S, NR = 5, 5, 2, 19
+    NP = NH * (NH + 1) // 2
+    ll = -rng.gamma(2.0, 40.0, size=W * NH * NR).astype(np.float32)
+    ll[rng.rand(ll.size) < 0.05] = -np.inf  # -inf pairs give NaN terms
+    index_map = rng.randint(0, ll.size, size=(W, NH, NR)).astype(np.int32)
+    nr_w = np.array([NR, 11, 0, NR + 3, -1], np.int32)
+    pair_pr = (-rng.rand(W, S, NP) * 10).astype(dtype)
+    pair_pr[0, 0, 0] = pair_pr[2, 1, 3] = -0.0
+    return W, NH, S, NR, ll, index_map, nr_w, pair_pr
+
+
+def same_values(a, b):
+    """Equal tensors, NaN equal to NaN (a zero to a zero of either sign)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def first_bits(vr, vals, SP):
+    """Names of the fold values (ll, ll_off, ll_on of each row) that do
+    not carry the bits of the first column holding their value, of the
+    row, of its xm == 0 columns and of its other on-hap columns (a NaN:
+    the first NaN's bits): the sequential fold's rule, signed zeros
+    included, which plain's vectorised max need not keep."""
+    import numpy as np
+    vr = vr.cpu().numpy()
+    xm = np.arange(vr.shape[1]) % SP
+    cols = (np.ones(vr.shape[1], bool), xm == 0, (xm != 0) & (xm != SP - 1))
+    bad = []
+    for name, got, c in zip(("ll", "ll_off", "ll_on"), vals, cols):
+        for i, val in enumerate(got.cpu().numpy()):
+            row = vr[i][c]
+            same = np.isnan(row) if np.isnan(val) else row == val
+            if same.any() and row[np.argmax(same)].tobytes() != val.tobytes():
+                bad.append(f"{name} bits")
+                break
+    return bad
+
+
+def epilogue_special_phase(device):
+    """finish on rows that break a wrong combine (SPECIALS, planted in vr
+    and vh with alpha = beta = obs = -0.0) on K1's outputs, both folds,
+    float32 and float64, against its plain version (values NaN-equal,
+    flags and map_state on the consumed columns equal) and bit for bit
+    against the sequential fold (first_bits: a zero's sign and a NaN's
+    bits from the first column holding them); window_call at
+    window_special_case in both types (0 ulps, NaN terms included).
+    Returns the failures."""
+    import numpy as np
+    import torch
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+    from dindel_tpu_torch.hmm.finish import finish as plain
+
+    def up(a):
+        return torch.as_tensor(a, device=device)
+
+    failed = []
+    for dtype in ("float32", "float64"):
+        dt = getattr(np, dtype)
+        args, bounds = edge_inputs(B=9, H_pad=46, L_pad=24, numT=7,
+                                   dtype=dtype, seed=8, device=device)
+        B, S = 9, 2 * 48
+        valid = (torch.arange(24, device=device)[None, :]
+                 < args[4].long()[:, None])
+        for exact in (False, True):
+            dp = pair_hmm_dp(*args, exact_ties=exact, bounds=bounds)
+            for kind in SPECIALS:
+                rng = np.random.RandomState(SPECIALS.index(kind))
+                zero = up(np.full((B, S), -0.0, dt))
+                prm = up(special_rows(kind, B, S, dt, rng))
+                phm = up(np.roll(special_rows(kind, B, S, dt, rng), 3, 1))
+                fargs = (46, 24, 7, args[5], args[3], zero, zero, zero, prm,
+                         phm, dp[2], dp[3])
+                k = ek.finish(*fargs, exact_ties=exact, read_len=args[4])
+                r = plain(*fargs, exact_ties=exact)
+                sync(device)
+                bad = [n for n, a, b in zip(FINISH_NAMES, k, r)
+                       if not (same_values(a.masked_fill(~valid, -1),
+                                           b.masked_fill(~valid, -1))
+                               if n == "map_state" else same_values(a, b))]
+                if torch.device(device).type == "cuda":  # the kernel's
+                    bad += first_bits(((zero + zero) + zero) + prm,
+                                      (k[0], k[3], k[4]), 48)
+                if bad:
+                    failed.append((dtype, "exact" if exact else "fast",
+                                   kind, bad))
+    for dtype in ("float32", "float64"):
+        W, NH, S, NR, ll, im, nr_w, pp = window_special_case(
+            getattr(np, dtype))
+        u, err = window_check(up(ll), (W, NH, S, NR, up(im), up(nr_w),
+                                       up(pp)))
+        if u:
+            failed.append((f"window_call {dtype}", f"{u} ulps", err))
+    log(f"[epilogue-special] finish at {len(SPECIALS)} kinds of rows x 2 "
+        f"folds x 2 types (values as plain, bits as the sequential fold), "
+        f"window_call with NaN terms, signed zeros and "
+        f"nr_w 0, above NR and below 0: failed {failed}")
+    return failed
+
+
 def window_edge_case(case, device):
     """window_call against its plain version at one FOLD_EDGE_CASES
     shape; returns (largest ulp distance, largest absolute difference)."""
@@ -794,20 +963,21 @@ def epilogue_phase(name, n_windows, seed, device, reps, plain_reps,
         fargs = (H_pad, L_pad, numT, fin["b_mid"], fin["hap_len"], dp[0],
                  dp[1], fin["obs_mid"], fin["prior_rmq"], fin["prior_hmq"],
                  dp[2], dp[3])
-        ms = time_ms(lambda: ek.finish(*fargs, exact_ties=exact,
-                                       read_len=fin["read_len"]), reps,
-                     device)
+        t = kernel_times(lambda: ek.finish(*fargs, exact_ties=exact,
+                                           read_len=fin["read_len"]), reps,
+                         device, "finish_kernel")
         plain_ms = time_ms(lambda: plain_finish(*fargs, exact_ties=exact),
                            plain_reps, device)
         steps = walked_steps(pk["b_mid"], pk["read_len"], L_pad)
         b_ms, b_by = finish_bound(B, S, L_pad, steps, size)
         rows.setdefault("finish", {})[mode] = dict(
-            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            **t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             max_abs_err=0.0, B=B, S=S, L_pad=L_pad)
         log(f"[epilogue] {name} B={B} S={S} L_pad={L_pad} {mode}: finish "
-            f"bit-equal to plain; kernel {ms!r} ms, plain {plain_ms!r} ms, "
-            f"bound {b_ms!r} ms ({b_by}, {steps} walked steps), share of "
-            f"the bound {b_ms / ms:.4f}")
+            f"bit-equal to plain; kernel {fmt_times(t)}, plain "
+            f"{plain_ms!r} ms, bound {b_ms!r} ms ({b_by}, {steps} walked "
+            f"steps), share of the bound {share(b_ms, t)}; launch "
+            f"{launch_desc(device, 'finish', B, L_pad, size)}")
         if exact:
             continue
         t = tables_to_device(pk, device)
@@ -834,20 +1004,23 @@ def epilogue_phase(name, n_windows, seed, device, reps, plain_reps,
         if u:
             raise SystemExit(f"window_call kernel disagrees with its plain "
                              f"version: {name} {u} ulps, max abs {err!r}")
-        ms = time_ms(lambda: ek.window_call(*fold[:4], k[0], *fold[4:]),
-                     reps, device)
+        t = kernel_times(lambda: ek.window_call(*fold[:4], k[0],
+                                                *fold[4:]),
+                         reps, device, "window_call_kernel")
         plain_ms = time_ms(lambda: plain_fold(*fold[:4], k[0], *fold[4:]),
                            plain_reps, device)
         b_ms, b_by = window_bound(fold[0], NH, EPI_SITES, nr,
                                   n_windows * nr, size)
-        rows["window_call"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        rows["window_call"] = dict(**t, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by, max_abs_err=err,
                                    max_ulps=u, W=fold[0], NH=NH,
                                    S=EPI_SITES, NR=nr)
         log(f"[epilogue] {name} window_call W={fold[0]} NH={NH} "
-            f"S={EPI_SITES} NR={nr}: bit-equal to plain; kernel {ms!r} ms, "
-            f"plain {plain_ms!r} ms, bound {b_ms!r} ms ({b_by}), share of "
-            f"the bound {b_ms / ms:.4f}")
+            f"S={EPI_SITES} NR={nr}: bit-equal to plain; kernel "
+            f"{fmt_times(t)}, plain {plain_ms!r} ms, bound {b_ms!r} ms "
+            f"({b_by}), share of the bound {share(b_ms, t)}; launch "
+            + launch_desc(device, "window_call", fold[0], NH, EPI_SITES, nr,
+                          size))
     return rows
 
 
@@ -882,6 +1055,84 @@ def time_ms(fn, reps, device, host=False):
     host_ms = (time.perf_counter() - t0) * 1e3 / reps
     ms = start.elapsed_time(end) / reps
     return (ms, host_ms) if host else ms
+
+
+def device_ms(fn, reps, kernel):
+    """The mean device time (ms) of one launch of the CUDA kernel whose
+    name holds `kernel`, over `reps` calls of `fn` under torch.profiler
+    (its key_averages); None where the profiler shows no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if kernel in ev.key and ev.key != "cudaLaunchKernel":
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = getattr(ev, "cuda_time_total", 0.0)
+            if us:
+                total += us
+                count += ev.count
+    return total / count / 1e3 if count else None
+
+
+def kernel_times(fn, reps, device, kernel):
+    """{ms, host_ms, device_ms} of the wrapper `fn` that launches
+    `kernel`: CUDA events and the host clock over `reps` chained calls
+    (time_ms; the two agree when the host's enqueue, not the kernel, sets
+    the pace), and the kernel's own device time (device_ms; None off a
+    card or where the profiler shows none)."""
+    import torch
+    ms, host_ms = time_ms(fn, reps, device, host=True)
+    dev = (device_ms(fn, reps, kernel)
+           if torch.device(device).type == "cuda" else None)
+    return dict(ms=ms, host_ms=host_ms, device_ms=dev)
+
+
+def fmt_times(t):
+    dev = ("not measured" if t["device_ms"] is None
+           else f"{t['device_ms']!r} ms")
+    return (f"events {t['ms']!r} ms, host {t['host_ms']!r} ms, device "
+            f"(profiler) {dev}")
+
+
+def launch_floor(device, reps=200):
+    """The empty kernel's times through the wrappers' ctypes path
+    (epilogue_kernel.noop): the floor no launch beats."""
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    t = kernel_times(lambda: ek.noop(device), reps, device, "noop_kernel")
+    log(f"[floor] empty launch through the ctypes path: {fmt_times(t)}")
+    return t
+
+
+def launch_desc(device, kernel, *sizes):
+    """The launch the kernel's entry point picks for these sizes
+    (epilogue_kernel.launch_shape), as text."""
+    import torch
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    if torch.device(device).type != "cuda":
+        return "none (no card)"
+    shape = ek.launch_shape(kernel, *sizes)
+    if kernel == "finish":
+        return (f"{shape[0]} pairs a block, {shape[1]} blocks, "
+                f"{shape[2]} bytes of shared memory a block")
+    return (f"{shape[0]} pairs a block, {shape[1]} reads a chunk, "
+            f"{shape[2]} blocks, {shape[3]} bytes of shared memory a block")
+
+
+def share(bound_ms, t):
+    """The share of the bound the kernel reaches, by the CUDA events and
+    by its own device time."""
+    dev = ("not measured" if t["device_ms"] is None
+           else f"{bound_ms / t['device_ms']:.4f}")
+    return f"{bound_ms / t['ms']:.4f} (events), {dev} (device)"
 
 
 # ---------------------------------------------------------------------------
@@ -1035,7 +1286,8 @@ def slice_phase(d: Path, device, n_var, coverage, read_len):
     log(f"[slice] simulated {n_var} indels, {coverage}x, {read_len} bp in "
         f"{time.perf_counter() - t0:.3f} s")
     reset_launches()
-    wins, glfs, vcf, indels_s = cli_pipeline(d, fa, bam, device)
+    with FirstCalls("finish", "window_call") as first:
+        wins, glfs, vcf, indels_s = cli_pipeline(d, fa, bam, device)
     launches = read_launches()
     n_ok, no_nan = glf_rows_ok(glfs)
     recs = vcf_records(vcf)
@@ -1049,6 +1301,8 @@ def slice_phase(d: Path, device, n_var, coverage, read_len):
     if launches["pair_hmm_dp"] <= 0 or n_ok <= 0 or not recs or not no_nan:
         raise SystemExit("slice phase failed: launches/rows/calls")
     check_launches("device_call", launches)
+    main_slab = mainpath_epilogue(first.calls, device)
+    del first  # the slab's planes, before the warm pass's peak memory
     if torch.device(device).type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     wall, st = engine_pass(fa, bam, wins, d / "warm.glf.txt", device)
@@ -1061,7 +1315,93 @@ def slice_phase(d: Path, device, n_var, coverage, read_len):
         f"max_memory_allocated {peak} bytes")
     if st["windows_ok"] <= 0:
         raise SystemExit("slice phase failed: no window called")
-    return fa, bam, wins, launches
+    return fa, bam, wins, launches, main_slab
+
+
+class FirstCalls:
+    """While active: keeps the arguments of the first call of each named
+    kernel wrapper that hmm/slab.py makes (the call itself goes through,
+    and counts as it would)."""
+
+    def __init__(self, *names):
+        self.names = names
+
+    def __enter__(self):
+        from dindel_tpu_torch.hmm import slab
+
+        self.calls = {}
+        self.saved = {n: getattr(slab, n) for n in self.names}
+        for n, real in self.saved.items():
+            def first(*a, _n=n, _real=real, **k):
+                self.calls.setdefault(_n, (a, k))
+                return _real(*a, **k)
+            setattr(slab, n, first)
+        return self
+
+    def __exit__(self, *exc):
+        from dindel_tpu_torch.hmm import slab
+        for n, real in self.saved.items():
+            setattr(slab, n, real)
+        return False
+
+
+def mainpath_epilogue(calls, device, reps=20):
+    """K2 and K4 at the main path's own first slab (the arguments of
+    phase 4's first finish and window_call calls): each against its
+    plain version, then timed beside it and its bound (after the path's
+    launch count was read, so these launches are not the path's)."""
+    import numpy as np
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    from dindel_tpu_torch.hmm.finish import finish as plain_finish
+    from dindel_tpu_torch.infer.device_call import window_call as plain_fold
+
+    fa, fk = calls["finish"]
+    H_pad, L_pad, numT, b_mid = fa[:4]
+    exact, read_len = fk.get("exact_ties", False), fk["read_len"]
+    k = ek.finish(*fa, **fk)
+    r = plain_finish(*fa, exact_ties=exact)
+    sync(device)
+    bad = finish_mismatches(k, r, read_len, L_pad)
+    if bad:
+        raise SystemExit(f"finish kernel disagrees with its plain version "
+                         f"at the main path's slab: {bad}")
+    B, S = fa[5].shape
+    size = fa[5].element_size()
+    t = kernel_times(lambda: ek.finish(*fa, **fk), reps, device,
+                     "finish_kernel")
+    plain_ms = time_ms(lambda: plain_finish(*fa, exact_ties=exact), 2,
+                       device)
+    steps = walked_steps(b_mid.cpu().numpy(), read_len.cpu().numpy(), L_pad)
+    b_ms, b_by = finish_bound(B, S, L_pad, steps, size)
+    out = {"finish": dict(B=B, H_pad=H_pad, L_pad=L_pad, **t,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)}
+    log(f"[main-slab] finish at phase 4's first slab B={B} H_pad={H_pad} "
+        f"L_pad={L_pad} {'exact' if exact else 'fast'}: bit-equal to "
+        f"plain; kernel {fmt_times(t)}, plain {plain_ms!r} ms, bound "
+        f"{b_ms!r} ms ({b_by}, {steps} walked steps), share of the bound "
+        f"{share(b_ms, t)}; launch "
+        f"{launch_desc(device, 'finish', B, L_pad, size)}")
+    wa, _ = calls["window_call"]
+    W, NH, S, NR, ll, index_map, nr_w, pair_pr = wa
+    u, err = window_check(ll, (W, NH, S, NR, index_map, nr_w, pair_pr))
+    if u:
+        raise SystemExit(f"window_call kernel disagrees with its plain "
+                         f"version at the main path's slab: {u} ulps")
+    t = kernel_times(lambda: ek.window_call(*wa), reps, device,
+                     "window_call_kernel")
+    plain_ms = time_ms(lambda: plain_fold(*wa), 2, device)
+    size = pair_pr.element_size()
+    nreads = int(np.clip(nr_w.cpu().numpy(), 0, NR).sum())
+    b_ms, b_by = window_bound(W, NH, S, NR, nreads, size)
+    out["window_call"] = dict(W=W, NH=NH, S=S, NR=NR, **t,
+                              plain_ms=plain_ms, bound_ms=b_ms,
+                              bound_by=b_by, max_abs_err=err)
+    log(f"[main-slab] window_call at phase 4's first slab W={W} NH={NH} "
+        f"S={S} NR={NR} ({nreads} reads): bit-equal to plain (0 ulps); "
+        f"kernel {fmt_times(t)}, plain {plain_ms!r} ms, bound {b_ms!r} ms "
+        f"({b_by}), share of the bound {share(b_ms, t)}; launch "
+        f"{launch_desc(device, 'window_call', W, NH, S, NR, size)}")
+    return out
 
 
 def window_subset(wins, n_windows, path: Path):
@@ -1460,18 +1800,21 @@ def streaming_finish(pk, args, dp, exact, dtype, device):
     fargs = (H_pad, L_pad, numT, fin["b_mid"], fin["hap_len"], dp[0], dp[1],
              fin["obs_mid"], fin["prior_rmq"], fin["prior_hmq"], dp[2],
              dp[3])
-    ms = time_ms(lambda: ek.finish(*fargs, exact_ties=exact,
-                                   read_len=fin["read_len"]), 50, device)
+    t = kernel_times(lambda: ek.finish(*fargs, exact_ties=exact,
+                                       read_len=fin["read_len"]), 50, device,
+                     "finish_kernel")
     plain_ms = time_ms(lambda: plain_finish(*fargs, exact_ties=exact), 3,
                        device)
     B, S = dp[0].shape
+    size = np.dtype(dtype).itemsize
     steps = walked_steps(pk["b_mid"], pk["read_len"], L_pad)
-    b_ms, b_by = finish_bound(B, S, L_pad, steps, np.dtype(dtype).itemsize)
+    b_ms, b_by = finish_bound(B, S, L_pad, steps, size)
     log(f"[streaming-kernel] finish at the median window B={B} S={S} "
         f"{'exact' if exact else 'fast'}: bit-equal to plain; kernel "
-        f"{ms!r} ms, plain {plain_ms!r} ms, bound {b_ms!r} ms ({b_by}), "
-        f"share of the bound {b_ms / ms:.4f}")
-    return dict(B=B, S=S, L_pad=L_pad, ms=ms, plain_ms=plain_ms,
+        f"{fmt_times(t)}, plain {plain_ms!r} ms, bound {b_ms!r} ms "
+        f"({b_by}), share of the bound {share(b_ms, t)}; launch "
+        f"{launch_desc(device, 'finish', B, L_pad, size)}")
+    return dict(B=B, S=S, L_pad=L_pad, **t, plain_ms=plain_ms,
                 bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1798,8 +2141,9 @@ def golden_phase(d: Path, device):
 
 def build_phase():
     """Both kernel libraries built at once (each compiles its translation
-    units in parallel); prints the build time and ptxas's registers and
-    spills per kernel.  Returns K1's library."""
+    units in parallel); prints the build time and ptxas's registers,
+    shared memory and spills per kernel.  Returns (K1's library,
+    {epilogue kernel: ptxas's lines})."""
     from concurrent.futures import ThreadPoolExecutor
     from dindel_tpu_torch.hmm import dp_kernel, epilogue_kernel
 
@@ -1818,16 +2162,22 @@ def build_phase():
                     f"R={m.group(3)} numT<={m.group(4)}")
         elif "registers" in line or "spill" in line:
             log(f"[build] {kern}: {line.split(':', 1)[-1].strip()}")
+    ptxas = {}
     for line in epi.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"(finish|pair_stats|window_call)_kernel(I([fd])"
+        m = re.search(r"(finish|pair_stats|window_call|noop)_kernel(I([fd])"
                       r"(Lb([01]))?)?", line)
         if m and "Compiling entry function" in line:
             kern = " ".join(x for x in (
                 m.group(1), {"f": "f32", "d": "f64"}.get(m.group(3)),
                 {"0": "fast", "1": "exact"}.get(m.group(5))) if x)
-        elif "registers" in line or "spill" in line:
-            log(f"[build] {kern}: {line.split(':', 1)[-1].strip()}")
-    return so
+        elif kern and ("registers" in line or "spill" in line
+                       or "smem" in line):
+            text = line.split(":", 1)[-1].strip()
+            ptxas.setdefault(kern, []).append(text)
+            log(f"[build] {kern}: {text}")
+    log("[build] finish and window_call take their shared memory "
+        "dynamically (sized per launch; the launch logs give it)")
+    return so, ptxas
 
 
 def epilogue_glf_phase(d: Path, fa, bam, wins, device):
@@ -1891,7 +2241,7 @@ def main() -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    so = build_phase()
+    so, ptxas = build_phase()
     # the main path's kernels: float32, S_half 178 -> R = 6, numT 7
     loops = {}
     for fold, tag in (("fast", "IfLb0ELi6ELi7E"), ("exact", "IfLb1ELi6ELi7E")):
@@ -1907,6 +2257,10 @@ def main() -> int:
 
     edge_phase(dev)
     epilogue_edge_phase(dev)
+    special = epilogue_special_phase(dev)
+    if special:
+        raise SystemExit(f"epilogue kernels disagree with their plain "
+                         f"versions on special values: {special}")
     bench = compare_and_time("bench 8x768", 1, 1, dev, reps=20,
                              plain_reps=3)
     slab = compare_and_time("engine slab 24576", ENGINE_SLAB_WINDOWS, 2,
@@ -1925,6 +2279,7 @@ def main() -> int:
                                 plain_reps=2),
            "C2": epilogue_phase("engine slab 24576", ENGINE_SLAB_WINDOWS, 2,
                                 dev, reps=20, plain_reps=2)}
+    floor = launch_floor(dev)
     torch.cuda.empty_cache()
 
     closed = guard_rescues()
@@ -1932,8 +2287,8 @@ def main() -> int:
         tmp = Path(tmp)
         (tmp / "slice").mkdir()
         (tmp / "golden").mkdir()
-        fa, bam, wins, launches = slice_phase(tmp / "slice", dev,
-                                              N_VARIANTS, COVERAGE, READ_LEN)
+        fa, bam, wins, launches, main_slab = slice_phase(
+            tmp / "slice", dev, N_VARIANTS, COVERAGE, READ_LEN)
         parity_phase(tmp / "slice", fa, bam, wins, dev, PARITY_WINDOWS)
         epilogue_glf_phase(tmp / "epilogue_glf", fa, bam, wins, dev)
         golden_phase(tmp / "golden", dev)
@@ -1970,20 +2325,32 @@ def main() -> int:
     }]
     epi_src = "dindel_tpu_torch/csrc/slab_epilogue.cu"
     fin = epi["C2"]["finish"]
+    tkeys = keys + ("host_ms", "device_ms")
     rows.append({
         "name": "finish", "source": epi_src, "max_abs_err": 0.0,
-        **{k: fin["fast"][k] for k in keys},
-        "exact": {k: fin["exact"][k] for k in keys},
-        "at_C1": {m: {k: epi["C1"]["finish"][m][k] for k in keys}
+        **{k: fin["fast"][k] for k in tkeys},
+        "exact": {k: fin["exact"][k] for k in tkeys},
+        "at_C1": {m: {k: epi["C1"]["finish"][m][k] for k in tkeys}
                   for m in ("fast", "exact")},
-        "at_streaming_window": at_window["f64 exact"]["finish"]})
+        "at_streaming_window": at_window["f64 exact"]["finish"],
+        "at_main_path_slab": main_slab["finish"],
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith("finish")}})
     for name in ("pair_stats", "window_call"):
         r = epi["C2"][name]
         rows.append({
             "name": name, "source": epi_src,
-            "max_abs_err": max(epi[c][name]["max_abs_err"] for c in epi),
-            **{k: r[k] for k in keys},
-            "at_C1": {k: epi["C1"][name][k] for k in keys}})
+            "max_abs_err": max([epi[c][name]["max_abs_err"] for c in epi]
+                               + ([main_slab[name]["max_abs_err"]]
+                                  if name in main_slab else [])),
+            **{k: r[k] for k in (tkeys if name == "window_call" else keys)},
+            "at_C1": {k: epi["C1"][name][k]
+                      for k in (tkeys if name == "window_call" else keys)}})
+    rows[-1].update(at_main_path_slab=main_slab["window_call"],
+                    launch_floor={k: floor[k] for k in
+                                  ("ms", "host_ms", "device_ms")},
+                    ptxas={k: v for k, v in ptxas.items()
+                           if k.startswith("window_call")})
     for row in rows:
         row.update(route="cuda", replaces=REPLACES[row["name"]],
                    launches=launches[row["name"]],

@@ -17,7 +17,8 @@ walks every row, as the plain version does.
 
 ``<wrapper>.launches`` counts each wrapper's kernel launches (and
 nothing else), so a run can show that its slab program went through
-the kernels."""
+the kernels.  ``noop`` launches an empty kernel through the same path:
+the floor no launch of these wrappers can beat."""
 
 from __future__ import annotations
 
@@ -60,7 +61,10 @@ SIGNATURES = {**{f"dindel_finish_{v}": [_P] * 13 + [_I] * 4 + [_P]
                  for v in VARIANTS},
               **{f"dindel_window_call_{t}": [_P] * 6 + [_I] * 4 + [_D, _P]
                  for t in ("f32", "f64")},
-              "dindel_pair_stats": [_P] * 19 + [_I] * 5 + [_P]}
+              "dindel_pair_stats": [_P] * 19 + [_I] * 5 + [_P],
+              "dindel_epilogue_noop": [_P],
+              "dindel_finish_shape": [_I] * 3 + [_P],
+              "dindel_window_call_shape": [_I] * 5 + [_P]}
 
 
 def _lib():
@@ -114,12 +118,13 @@ def _type(name, dt):
     return "f32" if dt == torch.float32 else "f64"
 
 
-def _launch(wrapper, call):
+def _launch(wrapper, call, dev=None):
     """Launches `call` = (entry point, its arguments but the stream,
-    outputs) on the device of its first tensor and that device's current
-    stream; counts the launch."""
+    outputs) on `dev` (default: the device of its first tensor) and that
+    device's current stream; counts the launch."""
     entry, args, _ = call
-    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    if dev is None:
+        dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     fn = getattr(_lib(), entry)
     ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a
             for a in args]
@@ -274,6 +279,28 @@ def window_call(W, NH, S, NR, ll, index_map, nr_w, pair_pr):
     return call[2]
 
 
+def launch_shape(kernel, *sizes):
+    """The launch the entry point picks, for the logs: "finish" with (B,
+    L_pad, itemsize) gives (pairs a block, blocks, shared memory bytes a
+    block), "window_call" with (W, NH, S, NR, itemsize) gives (pairs a
+    block, reads a chunk, blocks, shared memory bytes a block).  Builds
+    the library; counts the current CUDA device's SMs."""
+    out = (ctypes.c_int * 4)()
+    getattr(_lib(), f"dindel_{kernel}_shape")(*sizes, out)
+    return tuple(out)[:3 if kernel == "finish" else 4]
+
+
+def noop(device="cuda"):
+    """One launch of an empty kernel (one warp) on `device`'s current
+    stream, through the ctypes path the kernels above take: timed beside
+    them, the launch floor.  Raises for a device that is not CUDA."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"noop: no kernel to launch on {dev}")
+    _launch(noop, ("dindel_epilogue_noop", [], ()), dev)
+
+
 finish.launches = 0
 pair_stats.launches = 0
 window_call.launches = 0
+noop.launches = 0

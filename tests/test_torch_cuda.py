@@ -24,7 +24,7 @@ import torch
 
 from chip_smoke import (EDGE_CASES, FOLD_EDGE_CASES, dp_mismatches,
                          edge_inputs, epilogue_edge_case, epilogue_phase,
-                         window_edge_case)
+                         epilogue_special_phase, window_edge_case)
 from dindel_tpu_torch.config import ObservationModelParameters, Parameters
 from dindel_tpu_torch.engine.batched import BatchedWindowEngine
 from dindel_tpu_torch.engine.candidates import get_candidates
@@ -144,6 +144,14 @@ def test_epilogue_kernels_match_plain_at_edge_shapes(cuda, case, exact_ties):
 @pytest.mark.parametrize("case", FOLD_EDGE_CASES)
 def test_window_call_kernel_matches_plain_at_edge_shapes(cuda, case):
     assert window_edge_case(case, cuda)[0] == 0
+
+
+def test_epilogue_kernels_match_plain_on_special_values(cuda):
+    """finish on rows with ties and near-ties across lanes, NaN, +-0.0 at
+    the maximum and all -inf (both folds, both types), window_call with
+    NaN terms, signed-zero seeds and nr_w outside [0, NR]: kernel vs
+    plain on the card, NaN equal to NaN."""
+    assert epilogue_special_phase(cuda) == []
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])

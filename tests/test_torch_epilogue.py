@@ -2,22 +2,39 @@
 window_call) on the CPU.
 
 CUDA cannot run here, so each kernel's algorithm is written below as a
-scalar NumPy walk, one pair (or one output element) at a time in the
-kernel's loop order, and held to the plain PyTorch version and to the
-JAX package (``_finish(bt_codes=True)``, ``_pair_stats``,
-``_window_call`` on the CPU) on seeded inputs: float32 with the fast
-fold and float64 with the exact one (and the other two pairings), V = 0
-and V > 0, b_mid at 0 and at read_len-1, sentinel flanks, and random
-garbage in the backpointer rows and map_state columns no pair consumes.
+NumPy model in the kernel's loop order, and held to the plain PyTorch
+version and to the JAX package (``_finish(bt_codes=True)``,
+``_pair_stats``, ``_window_call`` on the CPU) on seeded inputs:
+- finish: a warp per pair, lane l folding columns l, l+32, ... in
+  order, the lanes' partial folds combined by the xor-shuffle butterfly
+  (fast fold; and ll_off/ll_on of the exact fold); the exact EPS fold
+  run over each 32-column sub-row's prefix-maximum records only; then
+  the down walk and the up walk as two walks from s_mid.  Cases: float32
+  with the fast fold and float64 with the exact one (and the other two
+  pairings), b_mid at 0 and at read_len-1, random garbage in the
+  backpointer rows and map_state columns no pair consumes, and rows
+  that break a wrong combine: ties and near-ties (inside EPS) in
+  different lanes and sub-rows, NaN in several lanes, +0.0 and -0.0 at
+  the maximum, all -inf rows;
+- pair_stats: one pass over the read columns per pair, then the slots
+  (not redesigned: one thread per pair);
+- window_call: a block per (window, KT pairs), t computed once per
+  (pair, read) for a chunk of R reads, then each of the S+1 sums adding
+  the chunk in read order; several KT and R, NR not a multiple of R,
+  windows with nr_w 0, above NR and below it.
 The wrappers (hmm/epilogue_kernel.py) must return exactly the plain
 versions' results for CPU tensors and must not count a launch there.
 The kernels themselves are held to the plain versions on the card in
 tests/test_torch_cuda.py and chip_smoke.py.
 
 Tolerances: finish and pair_stats compare exactly (they add, compare
-and decode integers).  The window folds' exp/log compare to 1e-6
-relative in float32 and 1e-12 in float64: NumPy's, torch's and XLA's
-libm differ by ulps."""
+and decode integers), NaN equal to NaN; the sign of a zero at the
+maximum is held to the first occurrence's (the sequential fold's rule,
+which the kernel keeps) and compared by value to plain and JAX, whose
+vectorised max may return the other zero.  window_call's model is
+bit-equal to the plain version with torch's exp/log; with NumPy's it
+compares to 1e-6 relative in float32 and 1e-12 in float64, as does JAX:
+NumPy's, torch's and XLA's libm differ by ulps."""
 
 import hashlib
 
@@ -26,7 +43,8 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-from chip_smoke import edge_inputs
+from chip_smoke import (SPECIALS, edge_inputs, special_rows,
+                        window_special_case)
 from dindel_tpu.hmm.batch import _finish, _pair_stats
 from dindel_tpu.infer.device_call import _window_call
 from dindel_tpu_torch import nvcc_build
@@ -84,52 +102,137 @@ def _dec_bwd(row, cur, SP, RO, hl, numT):
     return SP + x if c == 0 else x if c == numT else (xy if xy <= hl else RO)
 
 
-def walk_finish(H_pad, L_pad, numT, b_mid, hap_len, alpha, beta, obs, prm,
-                phm, btf, btb, exact, read_len=None):
-    """finish_kernel: the folds over the states, then the walks."""
+LANES = 32
+BIG = 2 ** 31 - 1
+
+
+def _isnan(v):
+    return v != v
+
+
+def _before_fast(v, i, cv, ci):
+    """Does (v, column i) come before (cv, ci) in the fast fold's order:
+    a NaN first, then the larger value, then the lower column."""
+    n, cn = _isnan(v), _isnan(cv)
+    if n != cn:
+        return n
+    if not n and v != cv:
+        return v > cv
+    return i < ci
+
+
+def _before_exact(v, i, cv, ci):
+    """The exact fold's ll_off/ll_on order: a NaN never comes first."""
+    return bool(v > cv or (v == cv and i < ci))
+
+
+def _bits(v):
+    return np.asarray(v).tobytes()
+
+
+def _butterfly(pairs, before):
+    """The xor-shuffle combine of 32 lanes' (value, column): five rounds,
+    lane l taking lane l^o's pair where it comes first.  Every lane must
+    end with the same pair."""
+    for o in (16, 8, 4, 2, 1):
+        pairs = [pairs[lane ^ o] if before(*pairs[lane ^ o], *pairs[lane])
+                 else pairs[lane] for lane in range(LANES)]
+    assert len({(_bits(v), i) for v, i in pairs}) == 1
+    return pairs[0]
+
+
+def _max_num(a, b):
+    return a if _isnan(b) else b if (_isnan(a) or b > a) else a
+
+
+def _eps_records(v, base, eps, carry, ll, idx):
+    """One 32-column sub-row of the exact fold (v a list of 32, NaN past
+    the row): the lanes' inclusive max scan (shfl_up), each column's
+    maximum before it, the records, and the `v > ll + EPS` test over the
+    records in column order."""
+    neginf = type(eps)(-np.inf)
+    s = list(v)
+    for o in (1, 2, 4, 8, 16):
+        s = [_max_num(s[lane], s[lane - o]) if lane >= o else s[lane]
+             for lane in range(LANES)]
+    before = [_max_num(s[lane - 1] if lane else neginf, carry)
+              for lane in range(LANES)]
+    rec = [bool(v[lane] > before[lane]) for lane in range(LANES)]
+    carry = _max_num(carry, s[LANES - 1])
+    for lane in range(LANES):
+        if rec[lane] and v[lane] > ll + eps:
+            ll, idx = v[lane], base + lane
+    return carry, ll, idx
+
+
+def _walk(bt, i, cur, rows, decode):
+    """The states a walk visits from `cur` over backpointer `rows` of
+    pair i, one per row, in order."""
+    out = []
+    for b in rows:
+        cur = decode(bt[b, i], cur)
+        out.append(cur)
+    return out
+
+
+def model_finish(H_pad, L_pad, numT, b_mid, hap_len, alpha, beta, obs, prm,
+                 phm, btf, btb, exact, read_len=None):
+    """finish_kernel's loop order (see the module docstring); returns
+    the plain version's six outputs."""
     dt = alpha.dtype.type
     B = len(b_mid)
-    SP, RO = H_pad + 2, H_pad + 1
-    eps, neginf = dt(EPS), dt(-np.inf)
+    SP, RO, S = H_pad + 2, H_pad + 1, 2 * (H_pad + 2)
+    eps, neginf, nan = dt(EPS), dt(-np.inf), dt(np.nan)
+    before_off = _before_exact if exact else _before_fast
     fl = np.empty((3, B), dt)
     fb = np.empty((2, B), bool)
     ms = np.empty((B, L_pad), np.int32)
     for i in range(B):
-        ll = llH = off = on = neginf
-        mr = sm = 0
-        for x in range(2 * SP):
-            base = (alpha[i, x] + obs[i, x]) + beta[i, x]
-            v, w = base + prm[i, x], base + phm[i, x]
+        lanes = [dict(ll=(neginf, BIG), llH=(neginf, BIG), off=(neginf, BIG),
+                      on=(neginf, BIG)) for _ in range(LANES)]
+        ll, ir, llH, ih = neginf, BIG, neginf, BIG  # the exact scans
+        cv = cw = neginf
+        for base_col in range(0, S, LANES):
+            vs, ws = [nan] * LANES, [nan] * LANES
+            for lane in range(LANES):
+                x = base_col + lane
+                if x >= S:
+                    continue
+                base = (alpha[i, x] + obs[i, x]) + beta[i, x]
+                v, w = base + prm[i, x], base + phm[i, x]
+                vs[lane], ws[lane] = v, w
+                st = lanes[lane]
+                if not exact:
+                    for key, val in (("ll", v), ("llH", w)):
+                        if _before_fast(val, x, *st[key]):
+                            st[key] = (val, x)
+                key = "off" if x % SP == 0 else None if x % SP == RO else "on"
+                if key and before_off(v, x, *st[key]):
+                    st[key] = (v, x)
             if exact:
-                if v > ll + eps:
-                    ll, mr = v, x
-                if w > llH + eps:
-                    llH, sm = w, x
-            else:
-                if v > ll or (np.isnan(v) and not np.isnan(ll)):
-                    ll, mr = v, x
-                if w > llH or (np.isnan(w) and not np.isnan(llH)):
-                    llH, sm = w, x
-            if x % SP == 0:
-                off = v if v > off or (not exact and np.isnan(v)) else off
-            elif x % SP != RO:
-                on = v if v > on or (not exact and np.isnan(v)) else on
+                cv, ll, ir = _eps_records(vs, base_col, eps, cv, ll, ir)
+                cw, llH, ih = _eps_records(ws, base_col, eps, cw, llH, ih)
+        if not exact:
+            ll, ir = _butterfly([st["ll"] for st in lanes], _before_fast)
+            llH, ih = _butterfly([st["llH"] for st in lanes], _before_fast)
+        off = _butterfly([st["off"] for st in lanes], before_off)[0]
+        on = _butterfly([st["on"] for st in lanes], before_off)[0]
+        mr = 0 if ir == BIG else ir
+        sm = 0 if ih == BIG else ih
         fl[:, i] = ll, off, on
         fb[:, i] = mr % SP in (0, RO), sm % SP in (0, RO)
+        # the two walks, each from s_mid on a thread of its own
         hl = int(hap_len[i])
         rl = L_pad if read_len is None else int(read_len[i])
         a = min(max(int(b_mid[i]), 0), L_pad - 1)
-        ms[i, a] = cur = sm
-        for b in range(a, 0, -1):
-            cur = _dec_fwd(btf[b - 1, i], cur, SP, RO, hl)
-            ms[i, b - 1] = cur
-        cur = sm
-        b = a
-        while b <= min(L_pad - 2, rl - 2):
-            cur = _dec_bwd(btb[b, i], cur, SP, RO, hl, numT)
-            ms[i, b + 1] = cur
-            b += 1
-        ms[i, b + 1:] = cur
+        down = _walk(btf, i, sm, range(a - 1, -1, -1),
+                     lambda row, cur: _dec_fwd(row, cur, SP, RO, hl))
+        up = _walk(btb, i, sm, range(a, min(L_pad - 2, rl - 2) + 1),
+                   lambda row, cur: _dec_bwd(row, cur, SP, RO, hl, numT))
+        ms[i, :a] = down[::-1]
+        ms[i, a] = sm
+        ms[i, a + 1:a + 1 + len(up)] = up
+        ms[i, a + 1 + len(up):] = up[-1] if up else sm
     return fl[0], fb[0], fb[1], fl[1], fl[2], ms
 
 
@@ -220,31 +323,61 @@ def walk_pair_stats(H_pad, L_pad, V, ms, read_len, hap_len, read_idx,
             ints[6], flags[0], flags[1], ints[7], cov)
 
 
-def walk_window_call(W, NH, S, NR, ll, index_map, nr_w, pair_pr):
-    """window_call_kernel: one sequential fold per output element."""
+def torch_term(a, b):
+    """t of gathered values a, b (NumPy arrays of one dtype) as the plain
+    version computes it, with torch's exp and log."""
+    a, b = torch.from_numpy(a), torch.from_numpy(b)
+    log5 = torch.tensor(np.log(0.5), dtype=a.dtype)
+    one = torch.tensor(1.0, dtype=a.dtype)
+    m, mn = torch.maximum(a, b), torch.minimum(a, b)
+    return (log5 + (m + torch.log(one + torch.exp(mn - m)))).numpy()
+
+
+def numpy_term(a, b):
+    """t of gathered values a, b with NumPy's exp and log."""
+    dt = a.dtype.type
+    m, mn = np.maximum(a, b), np.minimum(a, b)
+    return dt(np.log(0.5)) + (m + np.log(dt(1.0) + np.exp(mn - m)))
+
+
+def model_window_call(W, NH, S, NR, ll, index_map, nr_w, pair_pr, KT, R,
+                      term):
+    """window_call_kernel's loop order: a block per (window, KT pairs
+    in pair_enum order); per chunk of R reads, t computed once per
+    (pair, read) by `term` from the two gathered ll values, then each
+    accumulator adding the chunk's values in read order; reads past nr_w
+    add one +0.0."""
     dt = pair_pr.dtype.type
+    NP = NH * (NH + 1) // 2
     h1v, h2v = pair_enum(NH)
-    NP = len(h1v)
+    zero = dt(0.0)
     llc = ll.astype(dt)
-    log5, one, zero = dt(np.log(0.5)), dt(1.0), dt(0.0)
     base = np.empty((W, NP), dt)
     site = np.empty((W, S, NP), dt)
     for w in range(W):
-        for j in range(S + 1):
-            for k in range(NP):
-                acc = zero if j == 0 else pair_pr[w, j - 1, k]
-                for r in range(NR):
-                    t = zero
-                    if r < nr_w[w]:
-                        a = llc[index_map[w, h1v[k], r]]
-                        b = llc[index_map[w, h2v[k], r]]
-                        m, mn = max(a, b), min(a, b)
-                        t = log5 + (m + np.log(one + np.exp(mn - m)))
-                    acc = acc + t
+        nr = min(max(int(nr_w[w]), 0), NR)
+        for k0 in range(0, NP, KT):
+            nk = min(KT, NP - k0)
+            acc = [zero if j == 0 else pair_pr[w, j - 1, k0 + kk]
+                   for j in range(S + 1) for kk in range(nk)]
+            for r0 in range(0, nr, R):
+                rc = min(R, nr - r0)
+                tv = [term(llc[index_map[w, h1v[k0 + kk], r0:r0 + rc]],
+                           llc[index_map[w, h2v[k0 + kk], r0:r0 + rc]])
+                      for kk in range(nk)]
+                for a in range(len(acc)):
+                    s = acc[a]
+                    for val in tv[a % nk]:
+                        s = s + val
+                    acc[a] = s
+            for a, s in enumerate(acc):
+                if nr < NR:
+                    s = s + zero
+                j, kk = divmod(a, nk)
                 if j == 0:
-                    base[w, k] = acc
+                    base[w, k0 + kk] = s
                 else:
-                    site[w, j - 1, k] = acc
+                    site[w, j - 1, k0 + kk] = s
     return base, site
 
 
@@ -317,10 +450,41 @@ def _valid(c):
 
 
 def _assert_finish_equal(a, b, valid=None):
+    """Equal outputs (NaN equal to NaN, a zero to a zero of either sign);
+    map_state on the `valid` columns."""
     for nm, x, y in zip(FIN_NAMES, a, b):
+        x, y = np.asarray(x), np.asarray(y)
         if nm == "map_state" and valid is not None:
             x, y = np.where(valid, x, -1), np.where(valid, y, -1)
-        assert x.dtype == y.dtype and np.array_equal(x, y), nm
+        assert x.dtype == y.dtype, nm
+        assert np.array_equal(x, y, equal_nan=x.dtype.kind == "f"), nm
+
+
+def _jax_finish(c, exact):
+    return [np.asarray(o) for o in _finish(
+        c["H_pad"], c["L_pad"], jnp.asarray(c["b_mid"]),
+        *[jnp.asarray(c[k]) for k in ("alpha", "beta", "obs", "prm", "phm",
+                                      "btf", "btb")],
+        exact_ties=exact, bt_codes=True, numT=c["numT"],
+        hap_len=jnp.asarray(c["hap_len"]))]
+
+
+def _assert_first_bits(c, out):
+    """ll, ll_off and ll_on carry the bits of the first column (of the
+    row, of the xm == 0 columns, of the other on-hap columns) that holds
+    their value: the sequential fold's rule, signed zeros included (and
+    the first NaN's bits, where a NaN wins)."""
+    vr = (c["alpha"] + c["obs"]) + c["beta"] + c["prm"]
+    S = vr.shape[1]
+    xm = np.arange(S) % (S // 2)
+    sets = (np.ones(S, bool), xm == 0, (xm != 0) & (xm != S // 2 - 1))
+    for name, got, cols in zip(("ll", "ll_off", "ll_on"),
+                               (out[0], out[3], out[4]), sets):
+        for i, val in enumerate(got):
+            row = vr[i][cols]
+            same = np.isnan(row) if np.isnan(val) else row == val
+            if same.any():
+                assert _bits(row[np.argmax(same)]) == _bits(val), (name, i)
 
 
 FOLDS = [(np.float32, False), (np.float64, True), (np.float32, True),
@@ -336,28 +500,57 @@ def test_finish_walk_matches_plain_and_jax(dtype, exact, b_mid):
     plain = _plain_finish(c, exact)
     valid = _valid(c)
     # the kernel with read_len walks only consumed rows
-    walk = walk_finish(*_fin_args(c, lambda a: a), exact,
-                       read_len=c["read_len"])
-    _assert_finish_equal(walk, plain, valid)
+    model = model_finish(*_fin_args(c, lambda a: a), exact,
+                         read_len=c["read_len"])
+    _assert_finish_equal(model, plain, valid)
     # without read_len it walks every row as the plain version does: equal
     # everywhere, garbage columns included (the floor modulo)
-    _assert_finish_equal(walk_finish(*_fin_args(c, lambda a: a), exact),
+    _assert_finish_equal(model_finish(*_fin_args(c, lambda a: a), exact),
                          plain)
-    want = [np.asarray(o) for o in _finish(
-        c["H_pad"], c["L_pad"], jnp.asarray(c["b_mid"]),
-        *[jnp.asarray(c[k]) for k in ("alpha", "beta", "obs", "prm", "phm",
-                                      "btf", "btb")],
-        exact_ties=exact, bt_codes=True, numT=c["numT"],
-        hap_len=jnp.asarray(c["hap_len"]))]
-    for nm, w, p in zip(FIN_NAMES, want, plain):
-        if nm == "map_state":
-            w, p = np.where(valid, w, -1), np.where(valid, p, -1)
-        assert np.array_equal(w, p), nm
+    _assert_finish_equal(_jax_finish(c, exact), plain, valid)
     if dtype == np.float64:  # the near-ties tell the two folds apart
         other = _plain_finish(c, not exact)
         assert not np.array_equal(plain[0], other[0])
     assert b_mid != "zero" or (c["b_mid"] == 0).all()
     assert b_mid != "last" or (c["b_mid"] == c["read_len"] - 1).all()
+
+
+
+
+@pytest.mark.parametrize("kind", SPECIALS)
+@pytest.mark.parametrize("dtype,exact", FOLDS, ids=FOLD_IDS)
+def test_finish_model_special_values(dtype, exact, kind):
+    """Rows planted in vr and vh (alpha = beta = obs = -0.0, so v is the
+    prior row bit for bit): the model equal to the plain version and to
+    JAX, and each fold value carrying its first column's bits."""
+    name = "float32" if dtype == np.float32 else "float64"
+    c = finish_case(name, exact, "rand", seed=8)
+    B, S = c["alpha"].shape
+    dt = c["alpha"].dtype.type
+    rng = np.random.RandomState(SPECIALS.index(kind))
+    for k in ("alpha", "beta", "obs"):
+        c[k] = np.full((B, S), -0.0, dt)
+    c["prm"] = special_rows(kind, B, S, dt, rng)
+    c["phm"] = np.roll(special_rows(kind, B, S, dt, rng), 3, axis=1)
+    plain = _plain_finish(c, exact)
+    valid = _valid(c)
+    model = model_finish(*_fin_args(c, lambda a: a), exact,
+                         read_len=c["read_len"])
+    _assert_finish_equal(model, plain, valid)
+    _assert_finish_equal(_jax_finish(c, exact), plain, valid)
+    _assert_first_bits(c, model)
+    if kind == "nan":
+        assert np.isnan(model[0]).all() != exact
+    if kind == "near" and dtype == np.float64:  # the folds differ here
+        other = model_finish(*_fin_args(c, lambda a: a), not exact,
+                             read_len=c["read_len"])
+        assert not np.array_equal(model[0], other[0])
+    if kind == "pm0":  # both signs of zero won somewhere
+        assert {bool(x) for x in np.signbit(model[0])} == {True, False}
+        assert {bool(x) for x in np.signbit(model[3])} == {True, False}
+    if kind == "ninf":  # odd rows hold one NaN, which the fast fold takes
+        for i, v in enumerate(model[0]):
+            assert np.isnan(v) if i % 2 and not exact else v == -np.inf
 
 
 @pytest.mark.parametrize("dtype,exact", FOLDS[:2], ids=FOLD_IDS[:2])
@@ -508,7 +701,7 @@ def _window_case(dtype, seed=0):
         index_map[w, :, :nr_w[w]] = (w * NH * NR + np.arange(NH)[:, None]
                                      * NR + np.arange(nr_w[w])[None, :])
     pair_pr = (-rng.rand(W, S, NP) * 10).astype(dtype)
-    pair_pr[0, 0, 0] = -0.0
+    pair_pr[0, 0, 0] = pair_pr[2, 0, 0] = -0.0
     return W, NH, S, NR, ll, index_map, nr_w, pair_pr
 
 
@@ -519,15 +712,48 @@ def test_window_call_walk_matches_plain_and_jax(dtype, rtol):
     pb, ps = plain_window(W, NH, S, NR, torch.from_numpy(ll),
                           torch.from_numpy(im), torch.from_numpy(nr_w),
                           torch.from_numpy(pp))
-    wb, ws = walk_window_call(W, NH, S, NR, ll, im, nr_w, pp)
+    # the kernel's loop order with torch's exp/log: bit-equal
+    mb, ms = model_window_call(W, NH, S, NR, ll, im, nr_w, pp, 2, 32,
+                               torch_term)
+    assert _bits(mb) == _bits(pb.numpy()) and _bits(ms) == _bits(ps.numpy())
+    # with NumPy's exp/log, and JAX, to the libm tolerance
+    wb, ws = model_window_call(W, NH, S, NR, ll, im, nr_w, pp, 2, 32,
+                               numpy_term)
     jb, js = _window_call(W, NH, S, NR, jnp.asarray(ll), jnp.asarray(im),
                           jnp.asarray(nr_w), jnp.asarray(pp))
     for got in ((wb, ws), (np.asarray(jb), np.asarray(js))):
         np.testing.assert_allclose(got[0], pb.numpy(), rtol=rtol)
         np.testing.assert_allclose(got[1], ps.numpy(), rtol=rtol)
     assert wb.dtype == pb.numpy().dtype == dtype
-    # a window without reads keeps its seeds: base 0, site = pair_pr
+    # a window without reads keeps its seeds: base 0, site = pair_pr, but
+    # a -0.0 seed comes out +0.0 (the masked reads each add +0.0)
     assert (pb[2] == 0).all() and torch.equal(ps[2], torch.from_numpy(pp[2]))
+    assert not np.signbit(ms[2, 0, 0]) and np.signbit(pp[2, 0, 0])
+
+
+@pytest.mark.parametrize("R", [5, 7, 19, 32])
+@pytest.mark.parametrize("KT", [1, 4])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_window_call_model_chunks(dtype, KT, R):
+    """The kernel's loop order at several pairs a block (KT; 4 does not
+    divide the 15 pairs, and its tiles span hap rows) and reads a chunk
+    (R; NR = 19 is a multiple of none but itself): base and site
+    bit-equal to the plain version, NaN terms and signed zeros included,
+    and to JAX to the libm tolerance."""
+    W, NH, S, NR, ll, im, nr_w, pp = window_special_case(dtype)
+    pb, ps = plain_window(W, NH, S, NR, torch.from_numpy(ll),
+                          torch.from_numpy(im), torch.from_numpy(nr_w),
+                          torch.from_numpy(pp))
+    assert torch.isnan(pb).any()  # NaN terms reach the sums
+    mb, ms = model_window_call(W, NH, S, NR, ll, im, nr_w, pp, KT, R,
+                               torch_term)
+    assert _bits(mb) == _bits(pb.numpy()) and _bits(ms) == _bits(ps.numpy())
+    jb, js = _window_call(W, NH, S, NR, jnp.asarray(ll), jnp.asarray(im),
+                          jnp.asarray(nr_w), jnp.asarray(pp))
+    rtol = 1e-6 if dtype == np.float32 else 1e-12
+    np.testing.assert_allclose(np.asarray(jb), mb, rtol=rtol)
+    np.testing.assert_allclose(np.asarray(js), ms, rtol=rtol)
+    assert not np.signbit(ms[2, 1, 3])  # nr_w 0: -0.0 + 0.0
 
 
 # ---------------------------------------------------------------------------
@@ -569,6 +795,10 @@ def test_wrappers_on_cpu_are_the_plain_versions(dtype, exact):
 
 
 def test_wrappers_refuse_other_devices():
+    n0 = ek.noop.launches
+    with pytest.raises(ValueError, match="no kernel to launch on cpu"):
+        ek.noop("cpu")  # the launch floor's empty kernel is CUDA only
+    assert ek.noop.launches == n0
     meta = torch.empty((2, 8), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ek.window_call(1, 1, 1, 1, torch.empty(2, device="meta"),

@@ -3,7 +3,7 @@ package ``dindel_tpu`` and nothing of ``jax``.
 
 An AST scan of every module of the port, of chip_smoke.py and of the
 port's measurement harness (bench_torch.py, tools/bench_windows_torch.py,
-tools/profile_host_torch.py) rejects any
+tools/profile_host_torch.py, tools/epilogue_phases_torch.py) rejects any
 such import, at top level or inside a function; a subprocess with both
 blocked by a ``sys.meta_path`` finder drives every verb of the port's CLI
 on a small sim, the diploid, pooled, full-decode and dense insert-prior
@@ -24,7 +24,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "dindel_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "bench_torch.py",
     REPO / "tools" / "bench_windows_torch.py",
-    REPO / "tools" / "profile_host_torch.py"]
+    REPO / "tools" / "profile_host_torch.py",
+    REPO / "tools" / "epilogue_phases_torch.py"]
 
 
 def _blocked(name: str) -> bool:
