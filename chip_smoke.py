@@ -25,22 +25,26 @@ Phases, in order; any failure exits non-zero:
    then K2-K4 against their plain versions on K1's outputs: at K1's edge
    shapes in both folds (finish with read_len on the consumed columns
    and without it on every column; pair_stats with V = 4 and V = 0;
-   window_call at chip_smoke.FOLD_EDGE_CASES), on rows that break a
-   wrong combine (SPECIALS: ties and near-ties across lanes, NaN, +-0.0
-   at the maximum, all -inf; window_call with NaN terms, signed-zero
-   seeds and nr_w outside [0, NR]), and at C1 and C2 in both folds, all
-   bit-equal (NaN equal to NaN), each timed with CUDA events beside its
-   plain version and its bound; K2 and K4 also by the host clock and
-   by their own device time (torch.profiler), beside an empty kernel's
-   launch through the same ctypes path (the launch floor);
+   pair_stats also at chip_smoke.STATS_EDGE_CASES: L_pad 33, 64, 112
+   and 200, V 0, 1 and 8, ins runs and repeated event positions across
+   column 32, read_len 0 and above L_pad, hap_len 0, NaN, +-inf and -0.0
+   log10q terms; window_call at chip_smoke.FOLD_EDGE_CASES), on rows
+   that break a wrong combine (SPECIALS: ties and near-ties across
+   lanes, NaN, +-0.0 at the maximum, all -inf; window_call with NaN
+   terms, signed-zero seeds and nr_w outside [0, NR]), and at C1 and C2
+   in both folds (pair_stats with V = 4 and V = 0), all bit-equal (NaN
+   equal to NaN), each timed with CUDA events, by the host clock and by
+   its own device time (torch.profiler) beside its plain version, its
+   bound and its launch shape, beside an empty kernel's launch through
+   the same ctypes path (the launch floor);
 4. the slice at realistic size: 360 planted indels, 30x, 100 bp reads
    (seed 3), through the CLI entry points getCIGARindels -> makeWindows
    -> indels --doDiploid --engine batched --hmmBackend pallas --device
    cuda -> mergeOutputDiploid, with the kernel's launch count read
    around the indels run; then a warm pass through the engine (windows/s,
-   stage seconds, peak device memory); then K2 and K4 at the run's own
-   first slab (its B, H_pad, L_pad, W, NH, S, NR logged): against their
-   plain versions, timed as in phase 3;
+   stage seconds, peak device memory); then K2-K4 at the run's own
+   first slab (its B, H_pad, L_pad, V, W, NH, S, NR logged): against
+   their plain versions, timed as in phase 3;
 5. parity: the first windows of that run on the card and on the CPU
    (plain versions), host folds: GLF bytes identical; then the first
    120 windows with device folds on the card through K2-K4 and through
@@ -105,11 +109,11 @@ run (REQUIRED) that never launched fails it.  The line before the last
 is the kernel table as JSON, K1-K4, each with its launches on the main
 path (the device-call route of phase 4) and on each path (device call,
 decode, pooled, streaming float64 and float32, dense, mesh,
-hostshard); K2 and K4 also with their host and device times, their
-times at the main path's first slab and ptxas's report, K4 with the
-launch floor; the last line is {"ok": true, "device": {...}}.  Needs
-nothing but the repository, the CUDA toolkit and PyTorch; imports no
-JAX."""
+hostshard); K2-K4 also with their host and device times, their times
+at C1 and at the main path's first slab and ptxas's report, K3 at V =
+0, K4 with the launch floor; the last line is {"ok": true, "device":
+{...}}.  Needs nothing but the repository, the CUDA toolkit and
+PyTorch; imports no JAX."""
 
 from __future__ import annotations
 
@@ -600,6 +604,127 @@ def stats_tables(t, device, seed):
         "v_left_h", "v_right_h", "v_isdel_h", "v_valid_h")]
 
 
+# pair_stats's edge rows (stats_edge_arrays keywords): rows not a
+# multiple of 32 long, V 0, 1 and 8
+STATS_EDGE_CASES = [
+    ("K3 L_pad 33, V 1", dict(L_pad=33, V=1, seed=21)),
+    ("K3 L_pad 64, V 8", dict(L_pad=64, V=8, seed=22)),
+    ("K3 L_pad 112, V 0", dict(L_pad=112, V=0, seed=23)),
+    ("K3 L_pad 200, V 8", dict(L_pad=200, V=8, seed=24)),
+]
+STATS_ARG_NAMES = ("map_state", "read_len", "hap_len", "read_idx", "hap_idx",
+                   "read_codes_r", "hap_codes_h", "bqt_r", "q95_r",
+                   "log10q_r", "v_left_h", "v_right_h", "v_isdel_h",
+                   "v_valid_h", "off_hap_hmq")
+
+
+def stats_edge_arrays(L_pad, V, seed, B=48, nh=6):
+    """pair_stats's inputs (numpy, STATS_ARG_NAMES) with the rows a wrong
+    loop order breaks, pair i by i % 8: an aligned walk; an ins run
+    across columns 32 (and 64); event positions repeated across column
+    32 (an ins entry, a match at its position, a second entry there, a
+    deletion); garbage states (negative, past 2 S_half, RO, 0); one ins
+    run on the hap over the whole row; an ins run over all of columns
+    32-63 entering the hap at 40; random jumps and ins runs; off-hap
+    sentinels at both ends.  The first half of the pairs come in runs
+    that share a hap, the rest in random order.  Pair 0 has read_len 0,
+    pair 1 read_len >
+    L_pad, pair 2 hap_len 0, pair 3 hap_len H_pad; log10q holds NaN,
+    +-inf and -0.0; the V slots reach the -3/-4 sentinels and below 0,
+    some are empty or invalid.  Returns (H_pad, arrays)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    H_pad = L_pad + 20
+    SP, RO = H_pad + 2, H_pad + 1
+    hl = rng.randint(L_pad // 2, H_pad + 1, size=B)
+    hl[2], hl[3] = 0, H_pad
+    rl = np.where(rng.rand(B) < 0.5, L_pad, rng.randint(1, L_pad + 1, B))
+    rl[0], rl[1] = 0, L_pad + 7
+    # the run and repeat rows on the hap and the read from end to end
+    runs = (np.arange(B) >= 4) & np.isin(np.arange(B) % 8, (1, 2, 4, 5))
+    rl[runs], hl[runs] = L_pad, H_pad
+    col = np.arange(L_pad)
+    ms = np.zeros((B, L_pad), np.int64)
+    for i in range(B):
+        s0 = rng.randint(0, 9)
+        walk = np.minimum(s0 + 1 + col, RO)
+        row = walk.copy()
+        kind = i % 8
+        if kind == 1:
+            for lo, hi in ((29, 37), (60, 71)):
+                if hi <= L_pad:
+                    row[lo:hi] = SP + walk[lo - 1]
+                    row[hi:] = np.minimum(walk[lo - 1] + 1 + col[hi:] - hi,
+                                          RO)
+        elif kind == 2 and L_pad >= 8:
+            o = min(30, L_pad - 4)     # the second entry at column 32 or 33
+            p = walk[o - 1]
+            row[o:o + 2] = SP + p      # an entry at position p
+            row[o + 2] = p             # a match there
+            row[o + 3] = SP + p        # a second entry at p: not new
+            row[o + 4:o + 5] = p + 3   # a deletion after it
+            row[o + 5:] = np.minimum(p + 6 + col[o + 5:] - o - 5, RO)
+        elif kind == 3:
+            row = rng.randint(-3 * SP, 3 * SP, size=L_pad)
+            row[rng.rand(L_pad) < 0.1] = RO
+            row[rng.rand(L_pad) < 0.1] = 0
+            row[rng.rand(L_pad) < 0.1] = SP + RO
+        elif kind == 4:
+            row = SP + np.minimum(walk, H_pad)
+        elif kind == 5 and L_pad >= 64:
+            row[32:64] = SP + RO       # ins off the hap (xs = hl + 1)
+            row[40:64] = SP + walk[39]
+        elif kind == 6:
+            steps = rng.choice([1, 1, 1, 0, 2, 3], size=L_pad)
+            row = np.minimum(np.cumsum(steps) + s0, RO)
+            ins = rng.rand(L_pad) < 0.15
+            row[ins] += SP
+        elif kind == 7:
+            row[:3] = 0
+            row[-4:] = RO
+        ms[i] = row
+    codes = np.frombuffer(b"ACGTN", np.uint8)
+    hc = codes[rng.choice(5, size=(nh, H_pad), p=[.225, .225, .225, .225,
+                                                   .1])]
+    hap_idx = rng.randint(0, nh, size=B)
+    hap_idx[:B // 2].sort()  # runs of pairs with one hap, as in a slab
+    read_idx = rng.permutation(B)
+    rc = np.zeros((B, L_pad), np.uint8)
+    for i in range(B):
+        xs = ms[i] % SP
+        match = hc[hap_idx[i], np.clip(xs - 1, 0, H_pad - 1)]
+        rc[read_idx[i]] = np.where(rng.rand(L_pad) < 0.9, match,
+                                   codes[rng.randint(0, 5, L_pad)])
+    lq = -rng.rand(B, L_pad) * 4
+    u = rng.rand(B, L_pad)
+    lq[u < 0.03] = np.nan
+    lq[(u >= 0.03) & (u < 0.06)] = np.inf
+    lq[(u >= 0.06) & (u < 0.09)] = -np.inf
+    lq[(u >= 0.09) & (u < 0.14)] = -0.0
+    left = rng.randint(-5, H_pad, size=(nh, V)).astype(np.int32)
+    if V:
+        left[:2, 0] = -4, -3
+    return H_pad, dict(
+        map_state=ms.astype(np.int32), read_len=rl.astype(np.int32),
+        hap_len=hl.astype(np.int32), read_idx=read_idx.astype(np.int64),
+        hap_idx=hap_idx.astype(np.int64), read_codes_r=rc, hap_codes_h=hc,
+        bqt_r=rng.rand(B, L_pad) < 0.8, q95_r=rng.rand(B, L_pad) < 0.5,
+        log10q_r=lq,
+        v_left_h=left,
+        v_right_h=(left + rng.randint(-1, 9, size=(nh, V))).astype(np.int32),
+        v_isdel_h=rng.rand(nh, V) < 0.5, v_valid_h=rng.rand(nh, V) < 0.8,
+        off_hap_hmq=rng.rand(B) < 0.2)
+
+
+def stats_edge_args(kw, device, max_mm=2):
+    """pair_stats's arguments at one STATS_EDGE_CASES row, on `device`."""
+    import torch
+    H_pad, a = stats_edge_arrays(**kw)
+    return (H_pad, kw["L_pad"], kw["V"],
+            *[torch.as_tensor(a[k], device=device) for k in STATS_ARG_NAMES],
+            max_mm)
+
+
 def fold_inputs(n_windows, nh, nr, S, dtype, device, seed):
     """The per-window fold layout of a slab of n_windows windows of nh
     haps x nr reads (pairs window-major, hap, read), W padded to a power
@@ -656,9 +781,23 @@ def finish_check(H_pad, L_pad, numT, dp, fin, exact):
     return k, bad
 
 
+def same_bits(a, b):
+    """Equal tensors bit for bit, NaN equal to NaN (the sign and payload
+    of a NaN an add makes may follow the order of its operands)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    it = torch.int64 if a.element_size() == 8 else torch.int32
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0).view(it),
+                                               b.masked_fill(nb, 0).view(it))
+
+
 def stats_check(H_pad, L_pad, map_state, off_hap_hmq, tables, max_mm=2):
-    """The pair_stats kernel against the plain version; returns the
-    mismatching output names."""
+    """The pair_stats kernel against the plain version (same_bits);
+    returns the mismatching output names."""
     from dindel_tpu_torch.hmm import epilogue_kernel as ek
     from dindel_tpu_torch.hmm.stats import pair_stats as plain
 
@@ -666,8 +805,14 @@ def stats_check(H_pad, L_pad, map_state, off_hap_hmq, tables, max_mm=2):
     args = (H_pad, L_pad, V, map_state, *tables, off_hap_hmq, max_mm)
     k, r = ek.pair_stats(*args), plain(*args)
     sync(map_state.device)
-    return [n for n, a, b in zip(STATS_NAMES, k, r)
-            if a.dtype != b.dtype or a.shape != b.shape or not a.equal(b)]
+    return [n for n, a, b in zip(STATS_NAMES, k, r) if not same_bits(a, b)]
+
+
+def stats_edge_case(kw, device):
+    """pair_stats against its plain version at one STATS_EDGE_CASES row;
+    returns the mismatches."""
+    a = stats_edge_args(kw, device)
+    return stats_check(a[0], a[1], a[3], a[17], list(a[4:17]), a[18])
 
 
 def window_check(ll, fold):
@@ -910,21 +1055,27 @@ def window_edge_case(case, device):
 def epilogue_edge_phase(device):
     """K2-K4 against their plain versions at the edge shapes (K1's
     EDGE_CASES: S_half up to 1024, numT 2..15, b_mid at 0 and at
-    read_len-1, a zero-length hap, float64) in both folds, and
-    window_call at FOLD_EDGE_CASES."""
+    read_len-1, a zero-length hap, float64) in both folds, pair_stats
+    at STATS_EDGE_CASES and window_call at FOLD_EDGE_CASES."""
     failed = []
     for name, kw in EDGE_CASES:
         for exact in (False, True):
             bad = epilogue_edge_case(kw, exact, device)
             if bad:
                 failed.append((name, "exact" if exact else "fast", bad))
+    for name, kw in STATS_EDGE_CASES:
+        bad = stats_edge_case(kw, device)
+        if bad:
+            failed.append((name, bad))
     for case in FOLD_EDGE_CASES:
         u, err = window_edge_case(case, device)
         if u:
             failed.append((f"window_call {case}", f"{u} ulps", err))
     log(f"[epilogue-edge] finish and pair_stats (V=0 and V={EPI_V}) at "
-        f"{len(EDGE_CASES)} shapes x 2 folds, window_call at "
-        f"{len(FOLD_EDGE_CASES)} shapes: failed {failed}")
+        f"{len(EDGE_CASES)} shapes x 2 folds, pair_stats at its "
+        f"{len(STATS_EDGE_CASES)} edge rows (L_pad 33-200, V 0/1/8; runs "
+        f"and repeated events across column 32; NaN, +-inf, -0.0 terms), "
+        f"window_call at {len(FOLD_EDGE_CASES)} shapes: failed {failed}")
     if failed:
         raise SystemExit(f"epilogue kernels disagree with their plain "
                          f"versions: {failed}")
@@ -986,19 +1137,32 @@ def epilogue_phase(name, n_windows, seed, device, reps, plain_reps,
         if bad:
             raise SystemExit(f"pair_stats kernel disagrees with its plain "
                              f"version: {name} {bad}")
-        sargs = (H_pad, L_pad, EPI_V, k[5], *tabs, k[2], 2)
-        ms = time_ms(lambda: ek.pair_stats(*sargs), reps, device)
-        plain_ms = time_ms(lambda: plain_stats(*sargs), plain_reps, device)
+        # V = 0: the counts and scans without the slot tests
+        tabs0 = tabs[:-4] + [x[:, :0].contiguous() for x in tabs[-4:]]
+        bad = stats_check(H_pad, L_pad, k[5], k[2], tabs0)
+        if bad:
+            raise SystemExit(f"pair_stats kernel disagrees with its plain "
+                             f"version: {name} V=0 {bad}")
         cols = int(np.minimum(pk["read_len"], L_pad).sum())
-        b_ms, b_by = stats_bound(B, L_pad, EPI_V,
-                                 pk["read_codes_r"].shape[0],
-                                 pk["hap_codes_h"].shape[0], H_pad, cols)
-        rows["pair_stats"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, max_abs_err=0.0, B=B,
-                                  V=EPI_V)
-        log(f"[epilogue] {name} pair_stats V={EPI_V}: bit-equal to plain; "
-            f"kernel {ms!r} ms, plain {plain_ms!r} ms, bound {b_ms!r} ms "
-            f"({b_by}), share of the bound {b_ms / ms:.4f}")
+        nr_t, nh_t = pk["read_codes_r"].shape[0], pk["hap_codes_h"].shape[0]
+        for V, tb in ((EPI_V, tabs), (0, tabs0)):
+            sargs = (H_pad, L_pad, V, k[5], *tb, k[2], 2)
+            t = kernel_times(lambda: ek.pair_stats(*sargs), reps, device,
+                             "pair_stats_kernel")
+            plain_ms = time_ms(lambda: plain_stats(*sargs), plain_reps,
+                               device)
+            b_ms, b_by = stats_bound(B, L_pad, V, nr_t, nh_t, H_pad, cols)
+            row = dict(**t, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       max_abs_err=0.0, B=B, V=V)
+            if V:
+                rows["pair_stats"] = row
+            else:
+                rows["pair_stats"]["at_V0"] = row
+            log(f"[epilogue] {name} pair_stats V={V}: bit-equal to plain; "
+                f"kernel {fmt_times(t)}, plain {plain_ms!r} ms, bound "
+                f"{b_ms!r} ms ({b_by}), share of the bound {share(b_ms, t)};"
+                f" launch "
+                f"{launch_desc(device, 'pair_stats', B, H_pad, L_pad, V)}")
         fold = fold_inputs(n_windows, NH, nr, EPI_SITES, dt, device, seed)
         u, err = window_check(k[0], fold)
         if u:
@@ -1120,7 +1284,7 @@ def launch_desc(device, kernel, *sizes):
     if torch.device(device).type != "cuda":
         return "none (no card)"
     shape = ek.launch_shape(kernel, *sizes)
-    if kernel == "finish":
+    if kernel != "window_call":
         return (f"{shape[0]} pairs a block, {shape[1]} blocks, "
                 f"{shape[2]} bytes of shared memory a block")
     return (f"{shape[0]} pairs a block, {shape[1]} reads a chunk, "
@@ -1286,7 +1450,7 @@ def slice_phase(d: Path, device, n_var, coverage, read_len):
     log(f"[slice] simulated {n_var} indels, {coverage}x, {read_len} bp in "
         f"{time.perf_counter() - t0:.3f} s")
     reset_launches()
-    with FirstCalls("finish", "window_call") as first:
+    with FirstCalls("finish", "pair_stats", "window_call") as first:
         wins, glfs, vcf, indels_s = cli_pipeline(d, fa, bam, device)
     launches = read_launches()
     n_ok, no_nan = glf_rows_ok(glfs)
@@ -1346,13 +1510,15 @@ class FirstCalls:
 
 
 def mainpath_epilogue(calls, device, reps=20):
-    """K2 and K4 at the main path's own first slab (the arguments of
-    phase 4's first finish and window_call calls): each against its
-    plain version, then timed beside it and its bound (after the path's
-    launch count was read, so these launches are not the path's)."""
+    """K2-K4 at the main path's own first slab (the arguments of phase
+    4's first finish, pair_stats and window_call calls): each against
+    its plain version, then timed beside it and its bound (after the
+    path's launch count was read, so these launches are not the
+    path's)."""
     import numpy as np
     from dindel_tpu_torch.hmm import epilogue_kernel as ek
     from dindel_tpu_torch.hmm.finish import finish as plain_finish
+    from dindel_tpu_torch.hmm.stats import pair_stats as plain_stats
     from dindel_tpu_torch.infer.device_call import window_call as plain_fold
 
     fa, fk = calls["finish"]
@@ -1381,6 +1547,26 @@ def mainpath_epilogue(calls, device, reps=20):
         f"{b_ms!r} ms ({b_by}, {steps} walked steps), share of the bound "
         f"{share(b_ms, t)}; launch "
         f"{launch_desc(device, 'finish', B, L_pad, size)}")
+    sa, _ = calls["pair_stats"]
+    V, ms, rl = sa[2], sa[3], sa[4]
+    bad = stats_check(H_pad, L_pad, ms, sa[17], list(sa[4:17]), sa[18])
+    if bad:
+        raise SystemExit(f"pair_stats kernel disagrees with its plain "
+                         f"version at the main path's slab: {bad}")
+    t = kernel_times(lambda: ek.pair_stats(*sa), reps, device,
+                     "pair_stats_kernel")
+    plain_ms = time_ms(lambda: plain_stats(*sa), 2, device)
+    cols = int(rl.clamp(0, L_pad).sum())
+    b_ms, b_by = stats_bound(B, L_pad, V, sa[8].shape[0], sa[9].shape[0],
+                             H_pad, cols)
+    out["pair_stats"] = dict(B=B, H_pad=H_pad, L_pad=L_pad, V=V, **t,
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=0.0)
+    log(f"[main-slab] pair_stats at phase 4's first slab B={B} "
+        f"H_pad={H_pad} L_pad={L_pad} V={V}: bit-equal to plain; kernel "
+        f"{fmt_times(t)}, plain {plain_ms!r} ms, bound {b_ms!r} ms "
+        f"({b_by}), share of the bound {share(b_ms, t)}; launch "
+        f"{launch_desc(device, 'pair_stats', B, H_pad, L_pad, V)}")
     wa, _ = calls["window_call"]
     W, NH, S, NR, ll, index_map, nr_w, pair_pr = wa
     u, err = window_check(ll, (W, NH, S, NR, index_map, nr_w, pair_pr))
@@ -2341,16 +2527,15 @@ def main() -> int:
         rows.append({
             "name": name, "source": epi_src,
             "max_abs_err": max([epi[c][name]["max_abs_err"] for c in epi]
-                               + ([main_slab[name]["max_abs_err"]]
-                                  if name in main_slab else [])),
-            **{k: r[k] for k in (tkeys if name == "window_call" else keys)},
-            "at_C1": {k: epi["C1"][name][k]
-                      for k in (tkeys if name == "window_call" else keys)}})
-    rows[-1].update(at_main_path_slab=main_slab["window_call"],
-                    launch_floor={k: floor[k] for k in
-                                  ("ms", "host_ms", "device_ms")},
-                    ptxas={k: v for k, v in ptxas.items()
-                           if k.startswith("window_call")})
+                               + [main_slab[name]["max_abs_err"]]),
+            **{k: r[k] for k in tkeys},
+            "at_C1": {k: epi["C1"][name][k] for k in tkeys},
+            "at_main_path_slab": main_slab[name],
+            "ptxas": {k: v for k, v in ptxas.items() if k.startswith(name)}})
+    rows[-2].update(at_V0={c: {k: epi[c]["pair_stats"]["at_V0"][k]
+                               for k in tkeys} for c in epi})
+    rows[-1].update(launch_floor={k: floor[k] for k in
+                                  ("ms", "host_ms", "device_ms")})
     for row in rows:
         row.update(route="cuda", replaces=REPLACES[row["name"]],
                    launches=launches[row["name"]],

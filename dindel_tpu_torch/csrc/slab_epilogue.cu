@@ -37,8 +37,31 @@
 //   so a pair's chain is max(a, rl-1-a) steps instead of their sum, and
 //   the 2P chains of every resident block are in flight at once.
 //   map_state rows are built in shared memory and written coalesced.
-// - pair_stats: one thread per pair, rows read strided (not redesigned
-//   yet).
+// - pair_stats reads, per pair, its map_state row, its read's four table
+//   rows (codes, bqt and q95 flags, float64 log10q) and its hap's codes
+//   (1.9 kB a pair at an engine slab, 16.5 MB of distinct bytes: reads
+//   are shared by a window's haps and haps by its reads), and does a few
+//   integer operations per column.  It is bound by the rate it issues
+//   instructions and by its loads' latency, not by HBM (PERF.md has the
+//   phases' times).  A block takes P pairs (P from B, as finish's).  It
+//   stages their scalars, then warp w stages pairs w, w + kStatWarps,
+//   ... into shared memory with asynchronous copies (cp.async, 16 bytes
+//   a lane where the rows are aligned), all in flight at once; a hap's
+//   codes and slot tables once for each run of pairs with that hap
+//   (consecutive pairs mostly share one: copied once a pair, the same
+//   few L2 lines served hundreds of requests at a time).  Then, per
+//   pair, lane l decodes columns l, l+32, ... from shared memory in one
+//   pass: the order-free counts are lane partial sums or ballot counts
+//   (a chunk with no mismatch skips the mismatch counts); n_ind, a
+//   sequential scan, is counted per 32 columns from ballot masks with a
+//   carry between chunks (below; a chunk with no ins column and no
+//   deletion skips it); each column is left decoded in place (hap
+//   position and mismatch bits), so the V slot tests, kSlotGroup slots
+//   a pass, read one word a column.  The float64 m_log_bq sum keeps
+//   column order: after the block's warps are done, thread p adds pair
+//   p's terms from shared memory, walking the pass's ballot masks of
+//   bqt, so the P chains run in parallel.  Outputs are staged in shared
+//   memory and written with consecutive threads on consecutive pairs.
 // - window_call is bound by latency: its bytes take a fraction of a
 //   launch, and each output is a chain of one dependent add per read
 //   (the read order is the contract): nr_w adds at four clocks each at
@@ -72,7 +95,17 @@
 //   finish.py does, with a floor modulo (PyTorch's `%` on the state), so
 //   a garbage code never indexes outside its row.
 // - pair_stats: integer counts, and m_log_bq summed in column order in
-//   float64 with masked terms added as +0.0.
+//   float64 with masked terms added as +0.0.  The kernel skips them:
+//   the sum starts at +0.0 and never becomes -0.0 under round to
+//   nearest (+0.0 + -0.0 and an exact cancellation both give +0.0), and
+//   adding +0.0 to any other value (NaN and +-inf included) returns it
+//   unchanged.  n_ind: an event is a column b with del_ev, or an ins-on
+//   column with no ins-on column earlier in its run of ins columns; it
+//   is new unless the last event before it has its hap position.  Per
+//   32 columns, lane b finds its run's start from the ballot of non-ins
+//   columns and the last event before it from the ballot of events; the
+//   run's "seen" flag and the last event's position carry to the next
+//   chunk, so the count equals the sequential scan's.
 // - window_call: t = log(.5) + (m + log(1 + exp(mn - m))) with expf/logf
 //   (exp/log in double), added in read order.  Reads at and past nr_w
 //   add +0.0 in the plain version; x + 0.0 + 0.0 == x + 0.0 bit for bit
@@ -85,7 +118,9 @@
 // fast unit exports pair_stats (which has no type or fold) and the empty
 // launch that times the launch floor.
 
+#include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -99,8 +134,18 @@
 namespace {
 
 constexpr double kEPS = 1e-10;  // ObservationModelFB.hpp:25
-constexpr int kThreads = 128;   // pair_stats
 constexpr int kBig = 2147483647;  // fb's empty-min sentinel (stats.py)
+constexpr unsigned kFull = 0xffffffffu;
+
+// pair_stats: warps a block (a warp per pair at a time), most pairs a
+// block (its m_log_bq sums run one thread per pair in one warp, its hap
+// runs are one ballot), slots tested per pass over a row
+constexpr int kStatWarps = 4;
+constexpr int kStatThreads = 32 * kStatWarps;
+constexpr int kStatMaxPairs = 32;
+constexpr int kSlotGroup = 4;
+constexpr int kStatMaxLPad = 32736;  // slot counts: 10 bits a lane
+constexpr int kStatMaxHPad = 1 << 28;    // 2 xs + ins in an int
 
 // finish: warps a block; a walk thread per (pair, direction), so at most
 // kFinThreads / 2 pairs a block
@@ -417,11 +462,453 @@ finish_kernel(const int* __restrict__ b_mid, const int* __restrict__ hap_len,
   }
 }
 
-// one thread per pair: one pass over the read columns carrying every
-// count, then the coverage test per variant slot.  ints is (8, B): fb,
-// lb, n_bqt, n_mm_bqt, n_mm_left, n_mm_right, num_mm, n_ind; flags is
-// (2, B): has_event, any_mism; cov_ok is (B, V).
-__global__ void __launch_bounds__(kThreads)
+// pair_stats's shared memory, P pairs a block.  A pair's region holds
+// its map_state row (decoded in place by the column pass; zeros past
+// L_pad, a state that decodes to no column), its read's log10q, code,
+// bqt and q95 rows, its hap's codes and the pass's ballot masks of bqt,
+// each 16-byte aligned, the map_state and byte rows padded to whole
+// chunks of 32 columns; a region is an odd number of 16-byte units, so
+// that the sum threads (a pair each) start in different banks.  Then
+// the block's m_log_bq output, the pairs' read and hap rows, the ints
+// outputs, the pairs' read and hap lengths, the slot tables (P x V:
+// left, right, isdel | valid << 1; of a run's first pair, see
+// StatsBlock), the byte outputs (flags, cov_ok) and the pairs'
+// off_hap_hmq.
+struct StatsSmem {
+  int P, L_pad, H_pad, V;
+  __host__ __device__ static size_t a16(size_t n) {
+    return (n + 15) & ~(size_t)15;
+  }
+  __host__ __device__ int nch() const { return (L_pad + 31) / 32; }
+  __host__ __device__ size_t cols() const { return 32 * (size_t)nch(); }
+  __host__ __device__ size_t lq_at() const { return 4 * cols(); }
+  __host__ __device__ size_t rc_at() const {
+    return lq_at() + a16(8 * (size_t)L_pad);
+  }
+  __host__ __device__ size_t bq_at() const { return rc_at() + cols(); }
+  __host__ __device__ size_t q95_at() const { return bq_at() + cols(); }
+  __host__ __device__ size_t hc_at() const { return q95_at() + cols(); }
+  __host__ __device__ size_t mask_at() const { return hc_at() + a16(H_pad); }
+  __host__ __device__ size_t pair_bytes() const {
+    const size_t n = mask_at() + a16(4 * (size_t)nch());
+    return (n / 16) % 2 ? n : n + 16;
+  }
+  __host__ __device__ size_t mlq_at() const {
+    return (size_t)P * pair_bytes();
+  }
+  __host__ __device__ size_t ri_at() const { return mlq_at() + 8 * (size_t)P; }
+  __host__ __device__ size_t hi_at() const { return ri_at() + 8 * (size_t)P; }
+  __host__ __device__ size_t ints_at() const {
+    return hi_at() + 8 * (size_t)P;
+  }
+  __host__ __device__ size_t rl_at() const {
+    return ints_at() + 32 * (size_t)P;
+  }
+  __host__ __device__ size_t hl_at() const { return rl_at() + 4 * (size_t)P; }
+  __host__ __device__ size_t left_at() const {
+    return hl_at() + 4 * (size_t)P;
+  }
+  __host__ __device__ size_t right_at() const {
+    return left_at() + 4 * (size_t)P * V;
+  }
+  __host__ __device__ size_t sflag_at() const {
+    return right_at() + 4 * (size_t)P * V;
+  }
+  __host__ __device__ size_t flags_at() const {
+    return sflag_at() + (size_t)P * V;
+  }
+  __host__ __device__ size_t cov_at() const {
+    return flags_at() + 2 * (size_t)P;
+  }
+  __host__ __device__ size_t off_at() const {
+    return cov_at() + (size_t)P * V;
+  }
+  __host__ __device__ size_t total() const { return off_at() + (size_t)P; }
+};
+
+// n bytes from global `src` to shared `dst` (16-byte aligned) by the
+// warp's lanes: asynchronous copies of 16 or 4 bytes where src and n
+// allow, else byte by byte
+__device__ __forceinline__ void warp_stage(void* dst, const void* src, int n,
+                                           int lane) {
+  char* d = static_cast<char*>(dst);
+  const char* s = static_cast<const char*>(src);
+  const unsigned a = (unsigned)reinterpret_cast<uintptr_t>(src) | (unsigned)n;
+  if ((a & 15) == 0) {
+#pragma unroll 1
+    for (int k = 16 * lane; k < n; k += 16 * 32)
+      __pipeline_memcpy_async(d + k, s + k, 16);
+  } else if ((a & 3) == 0) {
+#pragma unroll 1
+    for (int k = 4 * lane; k < n; k += 4 * 32)
+      __pipeline_memcpy_async(d + k, s + k, 4);
+  } else {
+#pragma unroll 1
+    for (int k = lane; k < n; k += 32) d[k] = s[k];
+  }
+}
+
+// the hap position xs of state m (stats.py: m mod SP, RO read as hl +
+// 1); a floor modulo for codes outside [0, 2 SP)
+__device__ __forceinline__ int stat_xs(int m, int SP, int RO, int hl) {
+  int xa = m >= SP ? m - SP : m;
+  if ((unsigned)m >= (unsigned)(2 * SP)) xa = floor_mod(m, SP);
+  return xa == RO ? hl + 1 : xa;
+}
+
+// One block of pair_stats: pairs i0 .. i0 + np - 1, their scalars in
+// shared memory.  Warp w takes pairs w, w + kStatWarps, ...: npw of
+// them.  Consecutive pairs mostly share a hap (a slab's pairs are hap
+// major within a window), so its codes and slot tables are staged once
+// for each run of pairs with one hap, by the run's first pair (a bit of
+// `first`), and read from there.  The phases are the kernel's.
+struct StatsBlock {
+  unsigned char* smem;
+  StatsSmem lay;
+  int i0, np, w, lane, npw, SP, RO;
+  unsigned first;
+
+  __device__ StatsBlock(unsigned char* s, const StatsSmem& l, int B)
+      : smem(s),
+        lay(l),
+        i0(blockIdx.x * l.P),
+        w(threadIdx.x >> 5),
+        lane(threadIdx.x & 31),
+        SP(l.H_pad + 2),
+        RO(l.H_pad + 1),
+        first(0) {
+    np = min(lay.P, B - i0);
+    npw = np > w ? (np - w + kStatWarps - 1) / kStatWarps : 0;
+  }
+
+  __device__ __forceinline__ unsigned char* region(int p) const {
+    return smem + (size_t)p * lay.pair_bytes();
+  }
+  template <typename T>
+  __device__ __forceinline__ T* at(size_t off) const {
+    return reinterpret_cast<T*>(smem + off);
+  }
+  // the first pair of pair p's run (whose region holds its hap's codes)
+  __device__ __forceinline__ int run_start(int p) const {
+    return 31 - __clz(first & (0xffffffffu >> (31 - p)));
+  }
+
+  // phase 1: the pairs' scalars (a thread a pair); then each warp's
+  // pairs' rows into their regions, all in flight at once, and the runs'
+  // hap codes and slot tables; returns when the block's copies have
+  // landed
+  __device__ __forceinline__ void stage(
+      const int* __restrict__ map_state, const int* __restrict__ read_len,
+      const int* __restrict__ hap_len, const int64_t* __restrict__ read_idx,
+      const int64_t* __restrict__ hap_idx,
+      const uint8_t* __restrict__ read_codes_r,
+      const uint8_t* __restrict__ hap_codes_h,
+      const uint8_t* __restrict__ bqt_r, const uint8_t* __restrict__ q95_r,
+      const double* __restrict__ log10q_r, const int* __restrict__ v_left_h,
+      const int* __restrict__ v_right_h,
+      const uint8_t* __restrict__ v_isdel_h,
+      const uint8_t* __restrict__ v_valid_h,
+      const uint8_t* __restrict__ off_hap_hmq) {
+    const int L = lay.L_pad, V = lay.V, t = threadIdx.x;
+    long long* ri = at<long long>(lay.ri_at());
+    long long* hi = at<long long>(lay.hi_at());
+    if (t < np) {
+      ri[t] = read_idx[i0 + t];
+      hi[t] = hap_idx[i0 + t];
+      at<int>(lay.rl_at())[t] = read_len[i0 + t];
+      at<int>(lay.hl_at())[t] = hap_len[i0 + t];
+      at<uint8_t>(lay.off_at())[t] = off_hap_hmq[i0 + t] != 0;
+    }
+    __syncthreads();
+    first = __ballot_sync(kFull,
+                          lane < np && (lane == 0 || hi[lane] != hi[lane - 1]));
+    for (int k = 0; k < npw; ++k) {
+      const int p = w + kStatWarps * k;
+      const long long r = ri[p];
+      unsigned char* reg = region(p);
+      warp_stage(reg, map_state + (size_t)(i0 + p) * L, 4 * L, lane);
+      warp_stage(reg + lay.lq_at(), log10q_r + r * L, 8 * L, lane);
+      warp_stage(reg + lay.rc_at(), read_codes_r + r * L, L, lane);
+      warp_stage(reg + lay.bq_at(), bqt_r + r * L, L, lane);
+      warp_stage(reg + lay.q95_at(), q95_r + r * L, L, lane);
+      for (int c = L + lane; c < (int)lay.cols(); c += 32)
+        reinterpret_cast<int*>(reg)[c] = 0;
+      if ((first >> p) & 1) {
+        const long long h = hi[p];
+        warp_stage(reg + lay.hc_at(), hap_codes_h + h * lay.H_pad,
+                   lay.H_pad, lane);
+        for (int v = lane; v < V; v += 32) {
+          const long long slot = h * V + v;
+          at<int>(lay.left_at())[p * V + v] = v_left_h[slot];
+          at<int>(lay.right_at())[p * V + v] = v_right_h[slot];
+          at<uint8_t>(lay.sflag_at())[p * V + v] =
+              (v_isdel_h[slot] != 0) | (v_valid_h[slot] != 0) << 1;
+        }
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+
+  // phase 2: each warp's pairs, one at a time: the column pass, then
+  // the slot tests
+  __device__ __forceinline__ void pairs(int max_mismatch) {
+    for (int k = 0; k < npw; ++k) {
+      const int p = w + kStatWarps * k;
+      pass(p, at<int>(lay.rl_at())[p], at<int>(lay.hl_at())[p],
+           at<uint8_t>(lay.off_at())[p] != 0, max_mismatch);
+    }
+  }
+
+  // pair p's column pass (lane l: columns l, l+32, ...) and slot tests
+  __device__ __forceinline__ void pass(int p, int rl_p, int hl_p, bool off_p,
+                                       int max_mismatch) {
+    const int H_pad = lay.H_pad, P = lay.P, nch = lay.nch();
+    unsigned char* reg = region(p);
+    int* ms = reinterpret_cast<int*>(reg);
+    const uint8_t* rc = reg + lay.rc_at();
+    const uint8_t* bq = reg + lay.bq_at();
+    const uint8_t* q95 = reg + lay.q95_at();
+    const int p0 = run_start(p);
+    const uint8_t* hc = region(p0) + lay.hc_at();
+    unsigned* masks = reinterpret_cast<unsigned*>(reg + lay.mask_at());
+    const unsigned below = (1u << lane) - 1, hlu = (unsigned)max(hl_p, 0);
+
+    int fbv = kBig, lbv = -1, seen = 0, has_prev = 0, any_mm = 0;
+    int last_pos = 0;
+    unsigned n_bqt = 0, n_mm_bqt = 0, n_mm_left = 0, n_mm_right = 0,
+             num_mm = 0, n_ind = 0;
+    // column b's state: its hap position xs and ins; each chunk decodes
+    // the next one's ahead (columns past the row hold 0: no column)
+    int m = ms[lane];
+    int xs = stat_xs(m, SP, RO, hl_p), ins = m >= SP;
+    for (int c = 0; c < nch; ++c) {
+      const int b = 32 * c + lane;
+      const int mn = c + 1 < nch ? ms[b + 32] : 0;
+      const int xsn = stat_xs(mn, SP, RO, hl_p), insn = mn >= SP;
+      // column b + 1: the next lane's; lane 31's from the next chunk
+      int key1 = __shfl_sync(kFull, 2 * xs + ins, (lane + 1) & 31);
+      const int key1n = __shfl_sync(kFull, 2 * xsn + insn, 0);
+      if (lane == 31) key1 = key1n;
+      const int on = (unsigned)(xs - 1) < hlu && b < rl_p;
+      const int noins_on = on && !ins, inhap = on && ins;
+      const int del_ev =
+          noins_on && !(key1 & 1) && b + 1 < rl_p && (key1 >> 1) - xs > 1;
+      // the slot tests' hap position: -3 / -4 off the hap (sentinels),
+      // a negative one wrapping from the hap's end
+      const int hp = noins_on ? xs - 1 : (xs == 0 ? -3 : -4);
+      const int wrap = hp >= 0 ? hp : hl_p + hp;
+      const int hch = hc[min(max(wrap, 0), H_pad - 1)];
+      const int mm = hch != rc[b];
+      ms[b] = (hp + 4) << 2 | (hch == 'N') << 1 | mm;
+      const unsigned mb = __ballot_sync(kFull, noins_on && bq[b] != 0);
+      if (lane == 0) masks[c] = mb;
+      n_bqt += __popc(mb);
+      if (noins_on) {
+        fbv = min(fbv, hp);
+        lbv = max(lbv, hp);
+      }
+      // the mismatch counts from ballots, skipped by the (most) chunks
+      // without a mismatch; columns b > rl - 6 are lanes t and up
+      const unsigned M = __ballot_sync(kFull, noins_on && mm);
+      if (M) {
+        const int t = rl_p - 5 - 32 * c;
+        n_mm_bqt += __popc(M & mb);
+        num_mm += __popc(M & __ballot_sync(kFull, q95[b] != 0));
+        n_mm_left += c ? 0 : __popc(M & 0x3fu);
+        n_mm_right += __popc(M & (t <= 0 ? kFull : t < 32 ? kFull << t : 0));
+        any_mm = 1;
+      }
+      // n_ind, skipped by chunks with no ins column and no deletion: an
+      // ins-on column is an entry unless an earlier column of its run of
+      // ins columns is ins-on (the run from the last non-ins column
+      // before it, or from an earlier chunk: `seen`)
+      if (__any_sync(kFull, ins || del_ev)) {
+        const unsigned I = __ballot_sync(kFull, ins);
+        const unsigned H = __ballot_sync(kFull, inhap);
+        const unsigned z = ~I & below;
+        const int prior = z ? ((H & below) >> (32 - __clz(z))) != 0
+                            : (seen || (H & below) != 0);
+        const int ev = (inhap && !prior) || del_ev;
+        // new unless the last event before it (in this chunk, else the
+        // carried one) has its position
+        const unsigned E = __ballot_sync(kFull, ev);
+        const unsigned e = E & below;
+        const int pxs = __shfl_sync(kFull, xs, e ? 31 - __clz(e) : 0);
+        const int fresh =
+            ev && (e ? xs != pxs : (!has_prev || xs != last_pos));
+        n_ind += __popc(__ballot_sync(kFull, fresh));
+        seen = (I >> 31) &&
+               (~I ? (H >> (32 - __clz(~I))) != 0 : (seen || H != 0));
+        if (E) {
+          last_pos = __shfl_sync(kFull, xs, 31 - __clz(E));
+          has_prev = 1;
+        }
+      } else {
+        seen = 0;  // the chunk ends on a column that is not ins
+      }
+      m = mn;
+      xs = xsn;
+      ins = insn;
+    }
+    fbv = __reduce_min_sync(kFull, fbv);
+    lbv = __reduce_max_sync(kFull, lbv);
+    int* ints = at<int>(lay.ints_at());
+    uint8_t* flags = smem + lay.flags_at();
+    if (lane == 0) {
+      ints[p] = fbv == kBig ? -1 : fbv;
+      ints[P + p] = lbv;
+      ints[2 * P + p] = n_bqt;
+      ints[3 * P + p] = n_mm_bqt;
+      ints[4 * P + p] = n_mm_left;
+      ints[5 * P + p] = n_mm_right;
+      ints[6 * P + p] = num_mm;
+      ints[7 * P + p] = n_ind;
+      flags[p] = has_prev;  // has_event: some column was an event
+      flags[P + p] = any_mm;
+    }
+    __syncwarp();  // the decoded row, for every lane
+    slots(p, p0, ms, min(max(rl_p, 0), lay.L_pad), !off_p && !has_prev,
+          max_mismatch);
+  }
+
+  // pair p's V slot tests over its decoded row's first ncol columns,
+  // kSlotGroup slots a pass.  Per column one word w counts, in fields of
+  // 11, 11 and 10 bits, a no-ins column, a mismatch and a mismatch
+  // against an N; slot k adds w for each column with hap position in
+  // [left, right] and ORs the sentinels' bits (RO 1, LO 2) into lr[k].
+  // A lane's fields count at most nch columns; they are reduced apart
+  // over the warp, then the coverage test; all false unless sel.
+  __device__ __forceinline__ void slots(int p, int p0, const int* ms,
+                                        int ncol, bool sel,
+                                        int max_mismatch) {
+    const int V = lay.V;
+    const int* left = reinterpret_cast<const int*>(smem + lay.left_at());
+    const int* right = reinterpret_cast<const int*>(smem + lay.right_at());
+    const uint8_t* sflag = smem + lay.sflag_at();
+    uint8_t* cov = smem + lay.cov_at();
+    for (int v0 = 0; v0 < V; v0 += kSlotGroup) {
+      const int g = min(kSlotGroup, V - v0);
+      // slot k matches hap positions lo[k] .. lo[k] + span[k] (INT_MIN
+      // and 0: none)
+      int lo[kSlotGroup];
+      unsigned span[kSlotGroup], acc[kSlotGroup], lr[kSlotGroup];
+      int any = 0;
+#pragma unroll
+      for (int k = 0; k < kSlotGroup; ++k) {
+        lo[k] = INT_MIN;
+        span[k] = acc[k] = lr[k] = 0;
+        if (k < g) {
+          const int s = p0 * V + v0 + k;
+          const int l = left[s], r = right[s];
+          if (sel && (sflag[s] & 2) && r >= l) {
+            lo[k] = l;
+            span[k] = (unsigned)r - (unsigned)l;
+            any = 1;
+          }
+        }
+      }
+      if (any) {
+        for (int b = lane; b < ncol; b += 32) {
+          const unsigned d = (unsigned)ms[b];
+          const int hp = ((int)d >> 2) - 4;
+          const unsigned w = (unsigned)(hp >= 0) | (d & 1) << 11 |
+                             (unsigned)((d & 3) == 3) << 22;
+          const unsigned sent = hp < 0 ? (unsigned)(hp + 5) : 0u;
+#pragma unroll
+          for (int k = 0; k < kSlotGroup; ++k) {
+            if (k == g) break;
+            if ((unsigned)hp - (unsigned)lo[k] <= span[k]) {
+              acc[k] += w;
+              lr[k] |= sent;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kSlotGroup; ++k) {
+        if (k == g) break;
+        const int s = p0 * V + v0 + k;
+        const int f = sflag[s];
+        if (sel && (f & 2)) {  // warp-uniform
+          const unsigned c_noins = __reduce_add_sync(kFull, acc[k] & 0x7ff);
+          const unsigned mm = __reduce_add_sync(kFull, acc[k] >> 11 & 0x7ff);
+          const unsigned mmn = __reduce_add_sync(kFull, acc[k] >> 22);
+          const unsigned sk = __reduce_or_sync(kFull, lr[k]);
+          const long long c_size =
+              (long long)c_noins + (sk & 1) + (sk >> 1);
+          const long long ln = (long long)right[s] - left[s] + 1;
+          // a deletion's mismatches leave out those against an N
+          const bool ok_mm = (int)(f & 1 ? mm - mmn : mm) <= max_mismatch;
+          if (lane == 0)
+            cov[p * V + v0 + k] =
+                f & 1 ? (c_size >= ln && ok_mm) : (ok_mm && c_size == ln);
+        } else if (lane == 0) {
+          cov[p * V + v0 + k] = 0;
+        }
+      }
+    }
+  }
+
+  // phase 3 (after a __syncthreads): thread p < np adds pair p's
+  // m_log_bq terms in column order, skipping the masked ones (+0.0)
+  __device__ __forceinline__ void sums() const {
+    const int p = threadIdx.x;
+    if (p >= np) return;
+    const unsigned char* reg = region(p);
+    const unsigned* masks =
+        reinterpret_cast<const unsigned*>(reg + lay.mask_at());
+    const double* lq = reinterpret_cast<const double*>(reg + lay.lq_at());
+    double s = 0.0;
+    for (int c = 0; c < lay.nch(); ++c) {
+      const unsigned m = masks[c];
+      const double* q = lq + 32 * c;
+#pragma unroll
+      for (int j0 = 0; j0 < 32; j0 += 8) {
+        if (!((m >> j0) & 0xffu)) continue;
+        double t[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          t[j] = (m >> (j0 + j)) & 1 ? q[j0 + j] : 0.0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if ((m >> (j0 + j)) & 1) s = s + t[j];
+      }
+    }
+    reinterpret_cast<double*>(smem + lay.mlq_at())[p] = s;
+  }
+
+  // phase 4 (after a __syncthreads): the staged outputs, consecutive
+  // threads on consecutive pairs
+  __device__ __forceinline__ void write(int* __restrict__ ints,
+                                        double* __restrict__ m_log_bq,
+                                        uint8_t* __restrict__ flags,
+                                        uint8_t* __restrict__ cov_ok,
+                                        int B) const {
+    const int t = threadIdx.x, P = lay.P;
+    const int* is = reinterpret_cast<const int*>(smem + lay.ints_at());
+    for (int e = t; e < 8 * np; e += kStatThreads) {
+      const int k = e / np, q = e - k * np;
+      ints[(size_t)k * B + i0 + q] = is[k * P + q];
+    }
+    const double* ml = reinterpret_cast<const double*>(smem + lay.mlq_at());
+    const uint8_t* fs = smem + lay.flags_at();
+    for (int q = t; q < np; q += kStatThreads) {
+      m_log_bq[i0 + q] = ml[q];
+      flags[i0 + q] = fs[q];
+      flags[B + i0 + q] = fs[P + q];
+    }
+    const uint8_t* cs = smem + lay.cov_at();
+    for (int e = t; e < np * lay.V; e += kStatThreads)
+      cov_ok[(size_t)i0 * lay.V + e] = cs[e];
+  }
+};
+
+// P pairs a block (pair_stats_shape).  ints is (8, B): fb, lb, n_bqt,
+// n_mm_bqt, n_mm_left, n_mm_right, num_mm, n_ind; flags is (2, B):
+// has_event, any_mism; cov_ok is (B, V).
+__global__ void __launch_bounds__(kStatThreads)
 pair_stats_kernel(const int* __restrict__ map_state,
                   const int* __restrict__ read_len,
                   const int* __restrict__ hap_len,
@@ -439,115 +926,18 @@ pair_stats_kernel(const int* __restrict__ map_state,
                   const uint8_t* __restrict__ off_hap_hmq,
                   int* __restrict__ ints, double* __restrict__ m_log_bq,
                   uint8_t* __restrict__ flags, uint8_t* __restrict__ cov_ok,
-                  int B, int H_pad, int L_pad, int V, int max_mismatch) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= B) return;
-  const int SP = H_pad + 2, RO = H_pad + 1;
-  const int hl = hap_len[i], rl = read_len[i];
-  const int64_t ri = read_idx[i], hi = hap_idx[i];
-  const int* ms = map_state + (size_t)i * L_pad;
-  const uint8_t* rc = read_codes_r + ri * L_pad;
-  const uint8_t* bq = bqt_r + ri * L_pad;
-  const uint8_t* q95 = q95_r + ri * L_pad;
-  const double* lq = log10q_r + ri * L_pad;
-  const uint8_t* hc = hap_codes_h + hi * H_pad;
-
-  // column b's (ins, xs, on): xs is the hap position, RO read as hl + 1
-  auto column = [&](int b, bool* ins, int* xs, bool* on) {
-    const int m = ms[b];
-    const int xa = floor_mod(m, SP);
-    *ins = m >= SP;
-    *xs = xa == RO ? hl + 1 : xa;
-    *on = *xs >= 1 && *xs <= hl && b < rl;
-  };
-
-  int fbv = kBig, lbv = -1, n_bqt = 0, n_mm_bqt = 0, n_mm_left = 0,
-      n_mm_right = 0, num_mm = 0, n_ind = 0, last_pos = 0;
-  bool has_event = false, any_mism = false, has_prev = false,
-       seen_run = false;
-  double mlq = 0.0;
-  bool ins0, on0;
-  int xs0;
-  column(0, &ins0, &xs0, &on0);
-  for (int b = 0; b < L_pad; ++b) {
-    bool ins1 = false, on1 = false;
-    int xs1 = 0;
-    if (b + 1 < L_pad) column(b + 1, &ins1, &xs1, &on1);
-    const bool noins_on = on0 && !ins0;
-    const bool del_ev =
-        noins_on && !ins1 && b + 1 < rl && b + 1 < L_pad && xs1 - xs0 > 1;
-    const bool inhap = ins0 && on0;
-    has_event |= inhap || del_ev;
-    bool bqt = false;
-    if (noins_on) {
-      fbv = min(fbv, xs0 - 1);
-      lbv = max(lbv, xs0 - 1);
-      bqt = bq[b] != 0;
-      const bool mism = rc[b] != hc[min(max(xs0 - 1, 0), H_pad - 1)];
-      n_bqt += bqt;
-      n_mm_bqt += mism && bqt;
-      n_mm_left += mism && b < 6;
-      n_mm_right += mism && b > rl - 6;
-      num_mm += mism && q95[b] != 0;
-      any_mism |= mism;
-    }
-    mlq = mlq + (bqt ? lq[b] : 0.0);
-    // distinct MAP-path indel-event positions
-    const bool entry = inhap && !seen_run;
-    seen_run = ins0 && (seen_run || inhap);
-    const bool ev = entry || del_ev;
-    n_ind += ev && (!has_prev || xs0 != last_pos);
-    if (ev) last_pos = xs0;
-    has_prev |= ev;
-    ins0 = ins1;
-    xs0 = xs1;
-    on0 = on1;
-  }
-  ints[i] = fbv == kBig ? -1 : fbv;
-  ints[B + i] = lbv;
-  ints[2 * B + i] = n_bqt;
-  ints[3 * B + i] = n_mm_bqt;
-  ints[4 * B + i] = n_mm_left;
-  ints[5 * B + i] = n_mm_right;
-  ints[6 * B + i] = num_mm;
-  ints[7 * B + i] = n_ind;
-  m_log_bq[i] = mlq;
-  flags[i] = has_event;
-  flags[B + i] = any_mism;
-
-  // filter coverage per variant slot (stats.py: the sentinel codes -3/-4
-  // and the negative-index wrap from the hap end included)
-  const bool sel = !off_hap_hmq[i] && !has_event;
-  const int ncol = min(rl, L_pad);
-  for (int v = 0; v < V; ++v) {
-    const int64_t slot = hi * V + v;
-    bool ok = false;
-    if (sel && v_valid_h[slot]) {
-      const int left = v_left_h[slot], right = v_right_h[slot];
-      const bool isdel = v_isdel_h[slot] != 0;
-      int c_noins = 0, nmm = 0;
-      bool has_lo = false, has_ro = false;
-      for (int b = 0; b < ncol; ++b) {
-        bool ins, on;
-        int xs;
-        column(b, &ins, &xs, &on);
-        const bool noins_on = on && !ins;
-        const int hp = noins_on ? xs - 1 : (xs == 0 ? -3 : -4);
-        if (hp < left || hp > right) continue;
-        const int wrap = hp >= 0 ? hp : hl + hp;
-        const uint8_t hchar = hc[min(max(wrap, 0), H_pad - 1)];
-        c_noins += noins_on;
-        has_lo |= hp == -3;
-        has_ro |= hp == -4;
-        nmm += hchar != rc[b] && (!isdel || hchar != 'N');
-      }
-      const long long c_size = (long long)c_noins + has_lo + has_ro;
-      const long long ln = (long long)right - left + 1;
-      const bool ok_mm = nmm <= max_mismatch;
-      ok = isdel ? (c_size >= ln && ok_mm) : (ok_mm && c_size == ln);
-    }
-    cov_ok[(size_t)i * V + v] = ok;
-  }
+                  int B, int H_pad, int L_pad, int V, int max_mismatch,
+                  int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  StatsBlock b(smem, StatsSmem{P, L_pad, H_pad, V}, B);
+  b.stage(map_state, read_len, hap_len, read_idx, hap_idx, read_codes_r,
+          hap_codes_h, bqt_r, q95_r, log10q_r, v_left_h, v_right_h, v_isdel_h,
+          v_valid_h, off_hap_hmq);
+  b.pairs(max_mismatch);
+  __syncthreads();
+  b.sums();
+  __syncthreads();
+  b.write(ints, m_log_bq, flags, cov_ok, B);
 }
 
 // window_call's shared memory, KT pairs a block, R reads a chunk: the t
@@ -755,10 +1145,6 @@ window_call_kernel(const T* __restrict__ ll,
   b.write(base, site);
 }
 
-inline unsigned blocks_for(long long n) {
-  return (unsigned)((n + kThreads - 1) / kThreads);
-}
-
 int sm_count() {
   int dev = 0, n = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
@@ -783,6 +1169,21 @@ FinishSmem finish_shape(int B, int L_pad, size_t elem) {
   int P = pow2_floor(B / (4LL * sm_count()));
   P = min(max(P, kFinWarps), kFinMaxPairs);
   FinishSmem lay{P, L_pad | 1, elem};
+  while (lay.total() > (size_t)kMaxSmem && lay.P > 1) lay.P /= 2;
+  if (lay.total() > (size_t)kMaxSmem) lay.P = 0;
+  return lay;
+}
+
+// pair_stats's launch for B pairs: P pairs a block, the power of two at
+// or below B over eight times the SMs (a pair's rows take ~2 kB of
+// shared memory at the main path's shapes, so a block of P pairs
+// leaves room for several blocks an SM), kept in [kStatWarps,
+// kStatMaxPairs], halved while the block's shared memory would not fit
+// (P 0: nothing fits)
+StatsSmem pair_stats_shape(int B, int H_pad, int L_pad, int V) {
+  int P = pow2_floor(B / (8LL * sm_count()));
+  P = min(max(P, kStatWarps), kStatMaxPairs);
+  StatsSmem lay{P, L_pad, H_pad, V};
   while (lay.total() > (size_t)kMaxSmem && lay.P > 1) lay.P /= 2;
   if (lay.total() > (size_t)kMaxSmem) lay.P = 0;
   return lay;
@@ -882,6 +1283,7 @@ extern "C" int DINDEL_EPI_NAME2(dindel_window_call_, DINDEL_EPI_TYPE)(
 // dindel_pair_stats: 0 on a launched kernel, else the CUDA error code.
 // Shapes as pair_stats_kernel's comment; the per-read tables are
 // (rows, L_pad), the hap codes (rows, H_pad), the slot tables (rows, V).
+// Pairs a block: pair_stats_shape.
 extern "C" int dindel_pair_stats(
     const int* map_state, const int* read_len, const int* hap_len,
     const int64_t* read_idx, const int64_t* hap_idx,
@@ -891,14 +1293,21 @@ extern "C" int dindel_pair_stats(
     const uint8_t* v_valid_h, const uint8_t* off_hap_hmq, int* ints,
     double* m_log_bq, uint8_t* flags, uint8_t* cov_ok, int B, int H_pad,
     int L_pad, int V, int max_mismatch, void* stream) {
-  if (B <= 0 || H_pad < 1 || L_pad < 1 || V < 0)
+  // the slot tests count at most 1023 chunks a lane in 10-bit fields,
+  // the column pass packs 2 xs + ins in an int
+  if (B <= 0 || H_pad < 1 || H_pad > kStatMaxHPad || L_pad < 1 ||
+      L_pad > kStatMaxLPad || V < 0)
     return (int)cudaErrorInvalidValue;
-  pair_stats_kernel<<<blocks_for(B), kThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
+  const StatsSmem lay = pair_stats_shape(B, H_pad, L_pad, V);
+  if (lay.P == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(pair_stats_kernel, lay.total());
+  if (err != cudaSuccess) return (int)err;
+  pair_stats_kernel<<<(unsigned)((B + lay.P - 1) / lay.P), kStatThreads,
+                      lay.total(), static_cast<cudaStream_t>(stream)>>>(
       map_state, read_len, hap_len, read_idx, hap_idx, read_codes_r,
       hap_codes_h, bqt_r, q95_r, log10q_r, v_left_h, v_right_h, v_isdel_h,
       v_valid_h, off_hap_hmq, ints, m_log_bq, flags, cov_ok, B, H_pad, L_pad,
-      V, max_mismatch);
+      V, max_mismatch, lay.P);
   return (int)cudaGetLastError();
 }
 
@@ -906,12 +1315,22 @@ __global__ void noop_kernel() {}
 
 // dindel_finish_shape: finish's launch for B pairs of L_pad columns in a
 // type of `elem` bytes: out = (pairs a block, blocks, dynamic shared
-// memory bytes); dindel_window_call_shape: window_call's, out = (pairs a
-// block, reads a chunk, blocks, dynamic shared memory bytes).  For the
-// launch logs; the entry points above launch with these shapes.
-// Both return 0.
+// memory bytes); dindel_pair_stats_shape: pair_stats's for B pairs,
+// out = (pairs a block, blocks, dynamic shared memory bytes);
+// dindel_window_call_shape: window_call's, out = (pairs a block, reads
+// a chunk, blocks, dynamic shared memory bytes).  For the launch logs;
+// the entry points above launch with these shapes.  All return 0.
 extern "C" int dindel_finish_shape(int B, int L_pad, int elem, int* out) {
   const FinishSmem lay = finish_shape(B, L_pad, (size_t)elem);
+  out[0] = lay.P;
+  out[1] = lay.P ? (B + lay.P - 1) / lay.P : 0;
+  out[2] = (int)lay.total();
+  return 0;
+}
+
+extern "C" int dindel_pair_stats_shape(int B, int H_pad, int L_pad, int V,
+                                       int* out) {
+  const StatsSmem lay = pair_stats_shape(B, H_pad, L_pad, V);
   out[0] = lay.P;
   out[1] = lay.P ? (B + lay.P - 1) / lay.P : 0;
   out[2] = (int)lay.total();

@@ -64,7 +64,12 @@ SIGNATURES = {**{f"dindel_finish_{v}": [_P] * 13 + [_I] * 4 + [_P]
               "dindel_pair_stats": [_P] * 19 + [_I] * 5 + [_P],
               "dindel_epilogue_noop": [_P],
               "dindel_finish_shape": [_I] * 3 + [_P],
+              "dindel_pair_stats_shape": [_I] * 4 + [_P],
               "dindel_window_call_shape": [_I] * 5 + [_P]}
+# the pair_stats kernel's limits: slot counts of up to 1023 chunks of 32
+# columns a lane in 10-bit fields, 2 xs + ins in an int32
+STATS_MAX_L_PAD = 32736
+STATS_MAX_H_PAD = 1 << 28
 
 
 def _lib():
@@ -196,8 +201,10 @@ def pair_stats_args(H_pad, L_pad, V, map_state, read_len, hap_len, read_idx,
     """The pair_stats kernel's launch: (entry point, arguments, outputs),
     as finish_args."""
     B = map_state.shape[0]
-    if H_pad < 1 or L_pad < 1 or V < 0:
-        raise ValueError(f"pair_stats: H_pad {H_pad}, L_pad {L_pad}, V {V}")
+    if (not 1 <= H_pad <= STATS_MAX_H_PAD
+            or not 1 <= L_pad <= STATS_MAX_L_PAD or V < 0):
+        raise ValueError(f"pair_stats: H_pad {H_pad} (1..{STATS_MAX_H_PAD}), "
+                         f"L_pad {L_pad} (1..{STATS_MAX_L_PAD}), V {V}")
     nr, nh = read_codes_r.shape[0], hap_codes_h.shape[0]
     vecs = [_vec("map_state", map_state, (B, L_pad), torch.int32),
             _vec("read_len", read_len, (B,), torch.int32),
@@ -281,13 +288,14 @@ def window_call(W, NH, S, NR, ll, index_map, nr_w, pair_pr):
 
 def launch_shape(kernel, *sizes):
     """The launch the entry point picks, for the logs: "finish" with (B,
-    L_pad, itemsize) gives (pairs a block, blocks, shared memory bytes a
-    block), "window_call" with (W, NH, S, NR, itemsize) gives (pairs a
-    block, reads a chunk, blocks, shared memory bytes a block).  Builds
-    the library; counts the current CUDA device's SMs."""
+    L_pad, itemsize) and "pair_stats" with (B, H_pad, L_pad, V) give
+    (pairs a block, blocks, shared memory bytes a block), "window_call"
+    with (W, NH, S, NR, itemsize) gives (pairs a block, reads a chunk,
+    blocks, shared memory bytes a block).  Builds the library; counts
+    the current CUDA device's SMs."""
     out = (ctypes.c_int * 4)()
     getattr(_lib(), f"dindel_{kernel}_shape")(*sizes, out)
-    return tuple(out)[:3 if kernel == "finish" else 4]
+    return tuple(out)[:4 if kernel == "window_call" else 3]
 
 
 def noop(device="cuda"):

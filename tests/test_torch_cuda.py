@@ -22,9 +22,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (EDGE_CASES, FOLD_EDGE_CASES, dp_mismatches,
-                         edge_inputs, epilogue_edge_case, epilogue_phase,
-                         epilogue_special_phase, window_edge_case)
+from chip_smoke import (EDGE_CASES, FOLD_EDGE_CASES, STATS_EDGE_CASES,
+                         dp_mismatches, edge_inputs, epilogue_edge_case,
+                         epilogue_phase, epilogue_special_phase,
+                         stats_edge_case, window_edge_case)
 from dindel_tpu_torch.config import ObservationModelParameters, Parameters
 from dindel_tpu_torch.engine.batched import BatchedWindowEngine
 from dindel_tpu_torch.engine.candidates import get_candidates
@@ -131,14 +132,27 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         pair_hmm_dp(*args, bounds=bounds)
 
 
-@pytest.mark.parametrize("case", [kw for _, kw in EDGE_CASES],
-                         ids=[name for name, _ in EDGE_CASES])
-@pytest.mark.parametrize("exact_ties", [True, False])
+# K1's edge shapes in both folds, then pair_stats's own edge rows (no fold)
+EPILOGUE_EDGE = ([(ex, name, kw) for ex in (True, False)
+                  for name, kw in EDGE_CASES]
+                 + [(False, name, kw) for name, kw in STATS_EDGE_CASES])
+
+
+@pytest.mark.parametrize("exact_ties,case", [(ex, kw) for ex, _, kw in
+                                             EPILOGUE_EDGE],
+                         ids=[f"{ex}-{name}" for ex, name, _ in EPILOGUE_EDGE])
 def test_epilogue_kernels_match_plain_at_edge_shapes(cuda, case, exact_ties):
     """finish (with read_len on the consumed columns, without it on every
     column) and pair_stats (V = 4 and V = 0) on K1's outputs at K1's
-    edge shapes, kernel vs plain on the card: bit-equal."""
-    assert epilogue_edge_case(case, exact_ties, cuda) == []
+    edge shapes; pair_stats at its edge rows (chip_smoke.STATS_EDGE_CASES:
+    L_pad 33-200, V 0/1/8, ins runs and repeated event positions across
+    column 32, read_len 0 and above L_pad, hap_len 0, NaN, +-inf and
+    -0.0 log10q terms); kernel vs plain on the card: bit-equal, NaN equal
+    to NaN."""
+    if "V" in case:
+        assert stats_edge_case(case, cuda) == []
+    else:
+        assert epilogue_edge_case(case, exact_ties, cuda) == []
 
 
 @pytest.mark.parametrize("case", FOLD_EDGE_CASES)

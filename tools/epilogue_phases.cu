@@ -1,11 +1,14 @@
-// Phase kernels of the slab epilogue's window_call (K4), for timing its
-// phases apart on the card (tools/epilogue_phases_torch.py).  They are
-// composed from the shipped kernel's own device functions in
-// dindel_tpu_torch/csrc/slab_epilogue.cu, which this file includes, so
-// the shipped source keeps no measurement switch.  Their outputs are not
-// the kernel's outputs and are not read: which 0 runs the gathers and
-// the t values, no sums; which 1 the in-order sums over zeroed t values,
-// no gathers and no t.
+// Phase kernels of the slab epilogue's pair_stats (K3) and window_call
+// (K4), for timing their phases apart on the card
+// (tools/epilogue_phases_torch.py).  They are composed from the shipped
+// kernels' own device functions in dindel_tpu_torch/csrc/slab_epilogue.cu,
+// which this file includes, so the shipped source keeps no measurement
+// switch.  Their outputs are not the kernels' outputs and are not read:
+// pair_stats's staging phase stages the pairs' scalars, rows, hap codes
+// and slot tables and writes the (unset) staged outputs, no column pass,
+// slot tests or sums;
+// window_call's which 0 runs the gathers and the t values, no sums;
+// which 1 the in-order sums over zeroed t values, no gathers and no t.
 
 #include "../dindel_tpu_torch/csrc/slab_epilogue.cu"
 
@@ -71,7 +74,35 @@ int window_phase(int which, void* const* p, int W, int NH, int S, int NR,
   return (int)cudaGetLastError();
 }
 
+__global__ void __launch_bounds__(kStatThreads)
+stats_stage_only(void* const* p, int B, int H_pad, int L_pad, int V, int P) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  StatsBlock b(smem, StatsSmem{P, L_pad, H_pad, V}, B);
+  b.stage((const int*)p[0], (const int*)p[1], (const int*)p[2],
+          (const int64_t*)p[3], (const int64_t*)p[4], (const uint8_t*)p[5],
+          (const uint8_t*)p[6], (const uint8_t*)p[7], (const uint8_t*)p[8],
+          (const double*)p[9], (const int*)p[10], (const int*)p[11],
+          (const uint8_t*)p[12], (const uint8_t*)p[13],
+          (const uint8_t*)p[14]);
+  b.write((int*)p[15], (double*)p[16], (uint8_t*)p[17], (uint8_t*)p[18], B);
+}
+
 }  // namespace
+
+// dindel_stats_stage_phase: `p` (device memory) holds dindel_pair_stats's
+// 19 pointers; the staging phase above, launched as pair_stats is.  0 on
+// a launched kernel, else the CUDA error code.
+extern "C" int dindel_stats_stage_phase(void* const* p, int B, int H_pad,
+                                        int L_pad, int V, void* stream) {
+  const StatsSmem lay = pair_stats_shape(B, H_pad, L_pad, V);
+  if (B <= 0 || lay.P == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(stats_stage_only, lay.total());
+  if (err != cudaSuccess) return (int)err;
+  stats_stage_only<<<(unsigned)((B + lay.P - 1) / lay.P), kStatThreads,
+                     lay.total(), static_cast<cudaStream_t>(stream)>>>(
+      p, B, H_pad, L_pad, V, lay.P);
+  return (int)cudaGetLastError();
+}
 
 // dindel_window_phase: `p` (device memory) holds window_call's 6
 // pointers; which 0 or 1 as above.  0 on a launched kernel, else the

@@ -1,17 +1,24 @@
 #!/usr/bin/env python3
-"""Times the phases of the slab epilogue's finish (K2) and window_call
-(K4) kernels apart, on one NVIDIA GPU.
+"""Times the phases of the slab epilogue's finish (K2), pair_stats (K3)
+and window_call (K4) kernels apart, on one NVIDIA GPU.
 
     python3 tools/epilogue_phases_torch.py [--reps 20] [--against SOURCE]
 
-Builds tools/epilogue_phases.cu (window_call's phase kernels, made of
-the shipped kernel's device functions; nvcc into dindel_tpu_torch/build/)
+Builds tools/epilogue_phases.cu (pair_stats's and window_call's phase
+kernels, made of the shipped kernels' device functions; nvcc into
+dindel_tpu_torch/build/)
 beside the shipped library, then times, by CUDA events over `--reps`
 chained launches and by the kernel's own device time (torch.profiler):
 - finish at C1 (6144 pairs) and C2 (24576 pairs), float32, both folds,
   on K1's outputs, and at a streaming window's shape (B 1030, H_pad 128,
   L_pad 112, float64, exact fold): the whole kernel, and the folds alone
   (the same kernel on b_mid 0 and read_len 1: walks of no step);
+- pair_stats at C1 and C2 (on the fast fold's map_state, four variant
+  slots a hap) and at a main-path-like slab (B 24576, H_pad 128, L_pad
+  112, each read shared by eight haps, four slots): the whole kernel,
+  the kernel at V = 0 (the counts and scans without the slot tests) and
+  the staging alone (the scalars, rows, hap codes and slot tables into
+  shared memory and the output writes, no compute);
 - window_call at C1 and C2 (W 8, NH 8, S 4, NR 768: one or four windows
   of reads) and at a main-path-like slab (W 32, NH 12, S 4, NR 128, each
   window 4..12 haps and 40..128 reads in the engine's layout), float32:
@@ -53,6 +60,7 @@ def build():
     lib = ctypes.CDLL(str(path))
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.dindel_window_phase.argtypes = [I, I, P, I, I, I, I, D, P]
+    lib.dindel_stats_stage_phase.argtypes = [P, I, I, I, I, P]
     return lib
 
 
@@ -66,7 +74,8 @@ def build_against(source):
         "epilogue_against", Path(source), NVCC_FLAGS, ek.VARIANTS,
         "the kernels compared against")))
     for name in ek.SIGNATURES:
-        if name.startswith(("dindel_finish_f", "dindel_window_call_f")):
+        if (name.startswith(("dindel_finish_f", "dindel_window_call_f"))
+                or name == "dindel_pair_stats"):
             getattr(lib, name).argtypes = ek.SIGNATURES[name]
     return lib
 
@@ -127,6 +136,52 @@ def finish_shapes():
     yield ("streaming B1030 f64 exact", True, (
         128, 112, 7, args[5], args[3], dp[0], dp[1], row(), row(), row(),
         dp[2], dp[3]), args[4])
+
+
+def stats_shapes():
+    """(name, pair_stats arguments) at C1, C2 (on the fast fold's
+    map_state, chip_smoke's slot tables) and a main-path-like slab."""
+    import torch
+    import chip_smoke as cs
+    from dindel_tpu_torch.hmm import epilogue_kernel as ek
+    from dindel_tpu_torch.hmm.dp_kernel import pair_hmm_dp
+    from dindel_tpu_torch.hmm.pack import tables_to_device
+
+    def slab(pk_H, pk_L, numT, b_mid, hap_len, read_len, dp, fin, tabs):
+        k = ek.finish(pk_H, pk_L, numT, b_mid, hap_len, dp[0], dp[1],
+                      fin["obs_mid"], fin["prior_rmq"], fin["prior_hmq"],
+                      dp[2], dp[3], read_len=read_len)
+        return (pk_H, pk_L, cs.EPI_V, k[5], *tabs, k[2], 2)
+
+    for name, n_windows in (("C1", 1), ("C2", 4)):
+        pk, args, bounds, fin = cs.dp_inputs(n_windows, n_windows, "cuda")
+        dp = pair_hmm_dp(*args, bounds=bounds)
+        tabs = cs.stats_tables(tables_to_device(pk, "cuda"), "cuda",
+                               n_windows)
+        yield name, slab(pk["H_pad"], pk["L_pad"], pk["numT"], fin["b_mid"],
+                         fin["hap_len"], fin["read_len"], dp, fin, tabs)
+    # the main path's first slab's shape: each read's rows shared by
+    # eight haps (pairs hap-major within a window, as the engine packs)
+    B, H_pad, L_pad, nrd = 24576, 128, 112, 24576 // 8
+    args, bounds = cs.edge_inputs(B=B, H_pad=H_pad, L_pad=L_pad, numT=7,
+                                  dtype="float32", seed=31, device="cuda")
+    dp = pair_hmm_dp(*args, bounds=bounds)
+    g = torch.Generator().manual_seed(31)
+
+    def row():
+        return (torch.randint(-12, 1, (B, 2 * (H_pad + 2)), generator=g)
+                .float() / 4).cuda()
+    fin = dict(obs_mid=row(), prior_rmq=row(), prior_hmq=row())
+    i = torch.arange(B, device="cuda")
+    t = dict(read_len=args[4], hap_len=args[3], read_idx=i % nrd,
+             hap_idx=i // nrd, read_codes_r=args[6][:nrd].contiguous(),
+             hap_codes_h=args[7][:B // nrd].contiguous(),
+             bqt_r=torch.rand(nrd, L_pad, generator=g).cuda() < 0.8,
+             q95_r=torch.rand(nrd, L_pad, generator=g).cuda() < 0.5,
+             log10q_r=(-torch.rand(nrd, L_pad, generator=g,
+                                   dtype=torch.float64) * 4).cuda())
+    yield "main-path-like", slab(H_pad, L_pad, 7, args[5], args[3], args[4],
+                                 dp, fin, cs.stats_tables(t, "cuda", 31))
 
 
 def window_shapes():
@@ -219,6 +274,39 @@ def main() -> int:
                 lambda k, r: not cs.finish_mismatches(k, r, read_len, L_pad),
                 "finish_kernel", full, a.reps)
         out[f"finish {name}"] = row
+    for name, sa in stats_shapes():
+        B, H_pad, L_pad = sa[3].shape[0], sa[0], sa[1]
+        sa0 = (*sa[:2], 0, *sa[3:13],
+               *[x[:, :0].contiguous() for x in sa[13:17]], *sa[17:])
+        row = {"launch": ek.launch_shape("pair_stats", B, H_pad, L_pad,
+                                         sa[2])}
+        for label, args in (("whole", sa), ("V=0", sa0)):
+            bad = cs.stats_check(args[0], args[1], args[3], args[17],
+                                 list(args[4:17]), args[18])
+            if bad:
+                raise SystemExit(f"pair_stats {name} {label}: the kernel "
+                                 f"disagrees with its plain version: {bad}")
+            row[label] = timed(f"pair_stats {name} B={B} {label}",
+                               lambda: ek.pair_stats(*args),
+                               "pair_stats_kernel", a.reps)
+        entry, cargs, outs = ek.pair_stats_args(*sa)
+        ptrs = torch.tensor([x.data_ptr() for x in cargs[:19]],
+                            dtype=torch.int64, device="cuda")
+        row["staging"] = timed(
+            f"pair_stats {name} B={B} staging alone (rows, slot tables, "
+            f"output writes)",
+            lambda: checked(lib.dindel_stats_stage_phase(
+                ptrs.data_ptr(), B, H_pad, L_pad, sa[2], stream())),
+            "stats_stage_only", a.reps)
+        print(f"[phases] pair_stats {name}: launch (pairs a block, blocks, "
+              f"shared bytes) {row['launch']}", flush=True)
+        if other is not None:
+            row["against"] = against(
+                f"pair_stats {name}", other, entry, cargs, outs,
+                ek.pair_stats(*sa),
+                lambda k, r: all(cs.same_bits(x, y) for x, y in zip(k, r)),
+                "pair_stats_kernel", lambda: ek.pair_stats(*sa), a.reps)
+        out[f"pair_stats {name}"] = row
     for name, wa in window_shapes():
         W, NH, S, NR, ll, im, nr_w, pp = wa
         entry, cargs, outs = ek.window_call_args(*wa)
