@@ -1,0 +1,9 @@
+"""Milliseconds of the engine's `window_hmm` stage (RunStats.stage_seconds,
+host clock) accrued in the traced window, per window completed in it."""
+
+
+def read(rec):
+    s = rec["stage_s"].get("window_hmm")
+    if s is None or rec["windows"] <= 0:
+        return None
+    return 1e3 * s / rec["windows"]
