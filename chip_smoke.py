@@ -1748,7 +1748,7 @@ def guard_rescues(fail=True):
 
     def checked(eng):
         close(eng)
-        n = eng.stats.stage_seconds.get("slab_rescues", 0)
+        n = eng.stats.counts.get("slab.rescues", 0)
         closed.append(n)
         if n and fail:
             raise SystemExit(f"an engine rescued {n} slabs: its device "
@@ -2158,7 +2158,7 @@ def shards_phase(d: Path, fa, bam, wins, device):
             str(d / tag), str(d / f"{tag}.vcf"), num_workers=workers,
             backend="pallas", device=device)
         wall = time.perf_counter() - t0
-        rescues = sum(st["stage_seconds"].get("slab_rescues", 0)
+        rescues = sum(st["counts"].get("slab.rescues", 0)
                       for st in stats)
         runs[tag] = (d / f"{tag}.vcf").read_text()
         log(f"[shards] {tag}: {len(files)} window files, {workers} "
@@ -2258,7 +2258,7 @@ def hostshard_phase(d: Path, fa, bam, wins, device):
     cli_procs = [json.loads((d / f"cli.glf.txt.err{s}.stats").read_text())
                  for s in range(2)]
     cli_flags = [(p["cuda_initialized"],
-                  p["stage_seconds"].get("slab_rescues", 0))
+                  p["counts"].get("slab.rescues", 0))
                  for p in cli_procs]
     log(f"[hostshard] CLI --stageProcs 2 (cold: spawn, imports, staging): "
         f"{n} windows in {cli_wall:.3f} s = {n / cli_wall:.6g} windows/s; "
@@ -2299,8 +2299,8 @@ def hostshard_phase(d: Path, fa, bam, wins, device):
             f"{pst['cuda_initialized']}, stage seconds {stages}")
     check_launches("hostshard", launches)
     if (not same or not cli_same or stats["slab_rescues"]
-            or any(pst["cuda_initialized"] or pst["stage_seconds"].get(
-                "slab_rescues", 0) for pst in procs + cli_procs)):
+            or any(pst["cuda_initialized"] or pst["counts"].get(
+                "slab.rescues", 0) for pst in procs + cli_procs)):
         raise SystemExit("hostshard phase failed: GLF/launches/CUDA in a "
                          "staging process/rescues")
     return launches

@@ -30,7 +30,7 @@ A slab whose device phase raises is re-scored window by window through
 the per-window backend (float64, exact ties, the DP kernel on this
 engine's device, or under ``remote`` on the device server's:
 WindowEngine.compute_likelihoods); every rescue is counted in
-stats.stage_seconds["slab_rescues"] and its first cause is printed to
+stats.counts["slab.rescues"] and its first cause is printed to
 stderr.  A rescue never runs the DP anywhere else: if the device fails
 again, the run ends.  --faster runs the streaming engine (the CLI routes
 it there) and raises ValueError here.
@@ -151,6 +151,13 @@ class BatchedWindowEngine(WindowEngine):
         # state.
         finisher = ThreadPoolExecutor(max_workers=1)
         pending = None
+
+        def wait():
+            # this thread's wait on the finish worker's previous batch
+            if pending is not None:
+                with self.stats.stage("batch_wait"):
+                    all_rows.extend(pending.result())
+
         with open(glf_path, "w") as out:
             glf_data = make_glf_output(out)
             glf_data.write_header()
@@ -159,19 +166,16 @@ class BatchedWindowEngine(WindowEngine):
                     staged.append(entry)
                     if len(staged) >= self.batch_windows:
                         batch = self._dispatch_batch(staged)
-                        if pending is not None:
-                            all_rows.extend(pending.result())
+                        wait()
                         pending = finisher.submit(self._finish_batch, batch,
                                                   glf_data)
                         staged = []
                 if staged:
                     batch = self._dispatch_batch(staged)
-                    if pending is not None:
-                        all_rows.extend(pending.result())
+                    wait()
                     pending = finisher.submit(self._finish_batch, batch,
                                               glf_data)
-                if pending is not None:
-                    all_rows.extend(pending.result())
+                wait()
             finally:
                 finisher.shutdown(wait=True)
         return all_rows
@@ -208,7 +212,7 @@ class BatchedWindowEngine(WindowEngine):
         try:
             with self.stats.stage("get_reads"):
                 reads = get_reads(self.bams, p.tid, left_pos, right_pos, p,
-                                  self.libraries, self.buf)
+                                  self.libraries, self.buf, stats=self.stats)
             self.buf.reset = False
             with self.stats.stage("hapgen"):
                 skip, haps, lp2, rp2 = self.get_haplotypes(
@@ -220,11 +224,9 @@ class BatchedWindowEngine(WindowEngine):
                          right_pos=rp2)
         except WindowError as e:
             entry["error"] = "error_" + str(e).replace(" ", "_")
-            self.stats.record_error(entry["error"])
             self.buf.reset = True
         except MemoryError:
             entry["error"] = "error_bad_alloc"
-            self.stats.record_error(entry["error"])
             self.buf.reset = True
         self.buf.old_left_pos = (entry["left_pos"] if entry["error"] is None
                                  else left_pos)
@@ -247,12 +249,11 @@ class BatchedWindowEngine(WindowEngine):
         if slab:
             slabs.append(slab)
         items, rescued = [], {}
-        with self.stats.stage("device_hmm"):
-            for slab in slabs:
-                try:
-                    items.append(self._stage_slab(slab))
-                except Exception:
-                    rescued.update(self._rescue_slab(slab))
+        for slab in slabs:
+            try:
+                items.append(self._stage_slab(slab))
+            except Exception:
+                rescued.update(self._rescue_slab(slab))
         return dict(staged=staged, items=items, rescued=rescued,
                     params=copy.copy(self.params))
 
@@ -395,24 +396,22 @@ class BatchedWindowEngine(WindowEngine):
         p = batch["params"]
         liks_by_idx = dict(batch["rescued"])
         items = batch["items"]
-        with self.stats.stage("device_hmm"):
-            fetched = [None] * len(items)
-            if self.remote is not None and items:
-                # every slab of the batch in ONE round trip (JAX
-                # batched.py:726-749); if that raises, each slab is
-                # fetched again on its own below, so only a failing slab
-                # is rescued
-                try:
-                    with self.stats.stage("slab_fetch"):
-                        fetched = self.remote.fetch_pytrees(
-                            [item[4] for item in items])
-                except Exception:
-                    pass
-            for item, f in zip(items, fetched):
-                try:
-                    self._finish_slab(item, liks_by_idx, p, f)
-                except Exception:
-                    liks_by_idx.update(self._rescue_slab(item[1]))
+        fetched = [None] * len(items)
+        if self.remote is not None and items:
+            # every slab of the batch in ONE round trip (JAX
+            # batched.py:726-749); if that raises, each slab is fetched
+            # again on its own below, so only a failing slab is rescued
+            try:
+                with self.stats.stage("slab_fetch"):
+                    fetched = self.remote.fetch_pytrees(
+                        [item[4] for item in items])
+            except Exception:
+                pass
+        for item, f in zip(items, fetched):
+            try:
+                self._finish_slab(item, liks_by_idx, p, f)
+            except Exception:
+                liks_by_idx.update(self._rescue_slab(item[1]))
         if p.estimate_hap_freqs and self.device_em:
             self._batch_em(batch["staged"], liks_by_idx, p)
         rows: List[dict] = []
@@ -431,12 +430,12 @@ class BatchedWindowEngine(WindowEngine):
                 self.stats.record_ok(len(e["reads"]))
             except WindowError as err:
                 msg = "error_" + str(err).replace(" ", "_")
-                self.stats.record_error(msg)
                 self._error_row(glf_data, e, msg)
         return rows
 
-    @staticmethod
-    def _error_row(glf_data: OutputData, e: dict, msg: str) -> None:
+    def _error_row(self, glf_data: OutputData, e: dict, msg: str) -> None:
+        """A window's error row, counted as it is written."""
+        self.stats.record_error(msg)
         line = glf_data.line()
         line.set("msg", msg)
         line.set("index", e["index"])
@@ -529,9 +528,7 @@ class BatchedWindowEngine(WindowEngine):
         ends the run.  Returns {window
         index: (LiksView, None)}: rescued windows take the host
         callers."""
-        with self.stats.lock:
-            self.stats.stage_seconds["slab_rescues"] = (
-                self.stats.stage_seconds.get("slab_rescues", 0.0) + 1)
+        self.stats.count("slab.rescues", 1)
         if not self._rescue_reported:
             self._rescue_reported = True
             print("WARNING: slab device phase failed; per-window rescue "
@@ -545,7 +542,6 @@ class BatchedWindowEngine(WindowEngine):
                 out[e["index"]] = (liks, None)
             except WindowError as err:
                 e["error"] = "error_" + str(err).replace(" ", "_")
-                self.stats.record_error(e["error"])
         return out
 
     def _batch_em(self, staged: List[dict], liks_by_idx: dict, p) -> None:

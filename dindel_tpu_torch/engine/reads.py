@@ -8,6 +8,7 @@ likelihood computation is part of the behavioral contract."""
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Tuple
 
@@ -117,7 +118,8 @@ def _u32(x: int) -> int:
 
 def get_reads(bams: List[BamReader], tid: str, left_pos: int, right_pos: int,
               params: Parameters, libraries: LibraryCollection,
-              buf: ReadBuffer, impl: str = "arena") -> List[Read]:
+              buf: ReadBuffer, impl: str = "arena",
+              stats=None) -> List[Read]:
     """DetInDel::getReads (DInDel.cpp:885-1262).
 
     impl='arena' (production) keeps the sliding buffer as raw BAM arena
@@ -125,7 +127,12 @@ def get_reads(bams: List[BamReader], tid: str, left_pos: int, right_pos: int,
     impl='array' runs the same vectorized cascade over a buffer of Read
     objects; impl='loop' is the read-at-a-time port, kept as the
     reference implementation.  All three are asserted identical in
-    tests/test_reads_array.py."""
+    tests/test_reads_array.py.
+
+    stats (an engine.stats.RunStats, or None for none): the arena path
+    times its stages get_reads.fetch, get_reads.buffer and
+    get_reads.cascade and counts reads.records_fetched (arena rows the
+    fetch decoded) and reads.kept (reads returned)."""
     if left_pos < buf.old_left_pos:
         raise RuntimeError("Windows are not sorted!")
     if int(right_pos - left_pos) < 3 * params.min_read_overlap:
@@ -134,7 +141,7 @@ def get_reads(bams: List[BamReader], tid: str, left_pos: int, right_pos: int,
         if all(hasattr(b, "fetch_arena") for b in bams):
             try:
                 return _get_reads_arena(bams, tid, left_pos, right_pos,
-                                        params, libraries, buf)
+                                        params, libraries, buf, stats)
             except _ArenaUnavailable:
                 pass  # no .bai: record-iterator path below
         impl = "array"  # pure-Python reader fallback
@@ -308,7 +315,7 @@ def get_reads(bams: List[BamReader], tid: str, left_pos: int, right_pos: int,
 
 def _get_reads_arena(bams, tid: str, left_pos: int, right_pos: int,
                      params: Parameters, libraries: LibraryCollection,
-                     buf: ReadBuffer) -> List[Read]:
+                     buf: ReadBuffer, stats=None) -> List[Read]:
     """getReads with the sliding buffer held as raw BAM arena columns
     (io.bam_native.BamArena): the fetch, the flag prefilter, the
     duplicate check and the whole filter cascade run as array ops, and
@@ -316,9 +323,6 @@ def _get_reads_arena(bams, tid: str, left_pos: int, right_pos: int,
     as the other impls — field-for-field identical) only for cascade
     survivors.  ~6x fewer per-record Python constructions per window on
     30x data, where most fetched records fail the overlap filters."""
-    import numpy as np
-    from ..io.bam import FREVERSE, FUNMAP, FMUNMAP
-
     max_dev = int(libraries.get_max_insert_size())
     right_fetch = right_pos + max_dev
     right_most = right_pos + max_dev
@@ -327,6 +331,56 @@ def _get_reads_arena(bams, tid: str, left_pos: int, right_pos: int,
 
     rg2libs = [b.header.rg_to_library() for b in bams]
 
+    fresh = buf.reset or buf.cols is None
+    if not fresh and left_most < buf.old_right_fetch_read_pos:
+        left_fetch = buf.old_right_fetch_read_pos
+
+    def stage(name):
+        return (stats.stage(name) if stats is not None
+                else contextlib.nullcontext())
+
+    # the native fetch of each BAM; one that cannot be fetched ends the
+    # list with its error, which _buffer_arenas raises after the earlier
+    # BAMs' own checks, in the order of the reference's per-BAM loop
+    fetched = []
+    if left_fetch <= right_fetch:
+        with stage("get_reads.fetch"):
+            for bam in bams:
+                try:
+                    bam_tid = bam.header.tid_of(tid)
+                except KeyError:
+                    fetched.append(WindowError("Cannot find ID!"))
+                    break
+                arena = bam.fetch_arena(bam_tid, max(0, int(left_fetch)),
+                                        int(right_fetch))
+                if arena is None:
+                    fetched.append(_ArenaUnavailable())
+                    break
+                fetched.append(arena)
+        if stats is not None:
+            stats.count("reads.records_fetched", sum(
+                a.fixed.shape[0] for a in fetched
+                if not isinstance(a, Exception)))
+    with stage("get_reads.buffer"):
+        _buffer_arenas(buf, fresh, fetched, left_fetch, right_fetch,
+                       left_most, params)
+    with stage("get_reads.cascade"):
+        reads = _cascade_arena(buf, left_pos, right_pos, left_most,
+                               right_most, params, libraries, rg2libs)
+    if stats is not None:
+        stats.count("reads.kept", len(reads))
+    return reads
+
+
+def _buffer_arenas(buf: ReadBuffer, fresh: bool, fetched: list,
+                   left_fetch: int, right_fetch: int, left_most: int,
+                   params: Parameters) -> None:
+    """The arena buffer slid to left_most (emptied when `fresh`), the
+    fetched arenas' new rows appended (flag and position prefilter,
+    qname ids), then the duplicate check."""
+    import numpy as np
+    from ..io.bam import FREVERSE, FUNMAP, FMUNMAP
+
     empty_cols = lambda: dict(
         pos=np.empty(0, np.int64), size=np.empty(0, np.int64),
         end=np.empty(0, np.int64), unmapped=np.empty(0, bool),
@@ -334,7 +388,7 @@ def _get_reads_arena(bams, tid: str, left_pos: int, right_pos: int,
         mq=np.empty(0, np.float64), reverse=np.empty(0, bool),
         mate_pos0=np.empty(0, np.int64), qid=np.empty(0, np.int64))
 
-    if buf.reset or buf.cols is None:
+    if fresh:
         buf.cols = empty_cols()
         buf.refs = []
         buf.templates = []
@@ -347,21 +401,13 @@ def _get_reads_arena(bams, tid: str, left_pos: int, right_pos: int,
             kl = keep.tolist()
             buf.refs = [r for r, k in zip(buf.refs, kl) if k]
             buf.templates = [t for t, k in zip(buf.templates, kl) if k]
-        if left_most < buf.old_right_fetch_read_pos:
-            left_fetch = buf.old_right_fetch_read_pos
 
     if left_fetch <= right_fetch:
         cap = params.max_reads * 100
         new_blocks = []
-        for b_idx, bam in enumerate(bams):
-            try:
-                bam_tid = bam.header.tid_of(tid)
-            except KeyError:
-                raise WindowError("Cannot find ID!")
-            arena = bam.fetch_arena(bam_tid, max(0, int(left_fetch)),
-                                    int(right_fetch))
-            if arena is None:
-                raise _ArenaUnavailable()
+        for b_idx, arena in enumerate(fetched):
+            if isinstance(arena, Exception):
+                raise arena
             flags = arena.fixed[:, 3]
             keep = (flags & (FDUP | FQCFAIL | FSUPPLEMENTARY)) == 0
             rows = np.nonzero(keep)[0]
@@ -413,6 +459,12 @@ def _get_reads_arena(bams, tid: str, left_pos: int, right_pos: int,
         if (counts > 2).any():
             raise WindowError("duplicate reads!")
 
+
+def _cascade_arena(buf: ReadBuffer, left_pos: int, right_pos: int,
+                   left_most: int, right_most: int, params: Parameters,
+                   libraries: LibraryCollection, rg2libs) -> List[Read]:
+    """The filter cascade over the arena buffer, survivors materialized
+    straight from the arena columns."""
     templates = buf.templates
     refs = buf.refs
 

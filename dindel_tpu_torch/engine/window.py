@@ -200,24 +200,27 @@ class WindowEngine:
         # error_* GLF row for this window, not a run abort
         try:
             from .hapgen_native import make_hapdist
-            hd = make_hapdist(pos, ref_seq, rs)
-            if hasattr(hd, "insert_reads"):
-                hd.insert_reads([r.bam for r in reads])
-            else:
-                for r in reads:
-                    hd.insert_read(r.bam)
-            hd.set_frequencies()
+            with self.stats.stage("hapgen.hapdist"):
+                hd = make_hapdist(pos, ref_seq, rs)
+                if hasattr(hd, "insert_reads"):
+                    hd.insert_reads([r.bam for r in reads])
+                else:
+                    for r in reads:
+                        hd.insert_read(r.bam)
+                hd.set_frequencies()
 
-            hdi = HDIterator(hd, p.max_hap, pos, left_pos, right_pos,
-                             p.no_indel_window)
-            if hdi.get_log_num_haps() > math.log(p.skip_max_hap):
-                return True, [], left_pos, right_pos
-            if p.show_hap_dist:
-                # --showEmpirical (DInDel.cpp:1586-1589)
-                print("\nEmpirical distribution: ")
-                print(hdi)
-            haps = hdi.generate_haps_with_aligned_variants(
-                candidates, p.change_ins_to_n)
+            with self.stats.stage("hapgen.generate"):
+                hdi = HDIterator(hd, p.max_hap, pos, left_pos, right_pos,
+                                 p.no_indel_window)
+                if hdi.get_log_num_haps() > math.log(p.skip_max_hap):
+                    return True, [], left_pos, right_pos
+                if p.show_hap_dist:
+                    # --showEmpirical (DInDel.cpp:1586-1589)
+                    print("\nEmpirical distribution: ")
+                    print(hdi)
+                haps = hdi.generate_haps_with_aligned_variants(
+                    candidates, p.change_ins_to_n)
+            self.stats.count("hapgen.haps_generated", len(haps))
             if len(haps) > p.skip_max_hap or len(haps) * len(reads) > p.max_hap_read_prod:
                 # the late skip returns with haps FILLED
                 # (DInDel.cpp:1582-1585), so the caller's
@@ -228,18 +231,22 @@ class WindowEngine:
                 return True, haps, left_pos, right_pos
             left_pos = hdi.start()
             right_pos = hdi.end()
-            haps, _variants = self.align_haplotypes(haps, pos, left_pos, right_pos)
-            # remove duplicate reference-haplotypes (DInDel.cpp:1600-1616)
-            tmp: List[Haplotype] = []
-            found_ref = False
-            for hap in haps:
-                if hap.count_indels() == 0 and hap.count_snps() == 0:
-                    if not found_ref:
+            with self.stats.stage("hapgen.align"):
+                haps, _variants = self.align_haplotypes(haps, pos, left_pos,
+                                                        right_pos)
+                # remove duplicate reference-haplotypes
+                # (DInDel.cpp:1600-1616)
+                tmp: List[Haplotype] = []
+                found_ref = False
+                for hap in haps:
+                    if hap.count_indels() == 0 and hap.count_snps() == 0:
+                        if not found_ref:
+                            tmp.append(hap)
+                            found_ref = True
+                    else:
                         tmp.append(hap)
-                        found_ref = True
-                else:
-                    tmp.append(hap)
-            haps = tmp
+                haps = tmp
+            self.stats.count("hapgen.haps_kept", len(haps))
             if p.show_cand_hap:
                 _show_cand_haps(haps)
         except HapGenError as e:
@@ -286,14 +293,7 @@ class WindowEngine:
         if skip:
             return rows
 
-        self.stats.haps_generated += len(haps)
-        if haps and reads:
-            self.stats.pairs_scored += len(haps) * len(reads)
-            self.stats.cells_scored += (
-                len(haps) * len(reads)
-                * max(r.size() for r in reads)
-                * 2 * (max(h.size() for h in haps) + 2)
-                * (p.obs_params.max_length_del + 2))
+        self.stats.pairs_scored += len(haps) * len(reads)
         if p.estimate_hap_freqs:  # --doPooled
             liks, on_hap = self.compute_likelihoods(haps, reads, left_pos)
             filtered, var_coverage = filter_haplotypes(
@@ -419,7 +419,8 @@ class WindowEngine:
             try:
                 with self.stats.stage("get_reads"):
                     reads = get_reads(self.bams, p.tid, left_pos, right_pos, p,
-                                      self.libraries, self.buf)
+                                      self.libraries, self.buf,
+                                      stats=self.stats)
                 self.buf.reset = False
                 if p.show_reads:
                     _show_reads(reads)

@@ -317,6 +317,7 @@ def _staging_main(sock_path: str, bam_paths: List[str], fasta_path: str,
                            windows_ok=eng.stats.windows_ok,
                            windows_total=eng.stats.windows_total,
                            stage_seconds=dict(eng.stats.stage_seconds),
+                           counts=dict(eng.stats.counts),
                            cuda_initialized=torch.cuda.is_initialized()),
                       f)
     except Exception:
@@ -391,7 +392,7 @@ def run_hostshard(bam_paths: List[str], fasta_path: str, params,
     stats = [json.load(open(err + ".stats")) for err in err_paths]
     if any(st["cuda_initialized"] for st in stats):
         raise RuntimeError("a staging process initialized CUDA")
-    rescues = sum(st["stage_seconds"].get("slab_rescues", 0) for st in stats)
+    rescues = sum(st["counts"].get("slab.rescues", 0) for st in stats)
     if rescues:
         print(f"WARNING: staging processes rescued {rescues:g} slabs on the "
               "device server (see their stderr for the first cause)",

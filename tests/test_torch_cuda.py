@@ -319,7 +319,7 @@ def test_engine_card_equals_cpu(cuda, tmp_path, realigned):
         for wf in win_files:
             eng.detect_indels(wf, glf)
         eng.close()
-        assert eng.stats.stage_seconds.get("slab_rescues", 0) == 0
+        assert eng.stats.counts.get("slab.rescues", 0) == 0
         glfs.append(open(glf).read())
         bams.append(_ra_records(str(tmp_path / dev)))
     assert pair_hmm_dp.launches > n0
@@ -473,7 +473,7 @@ def test_hostshard_on_card_equals_one_process(cuda, tmp_path):
     assert stats["slab_rescues"] == 0
     for st in stats["per_proc"]:
         assert st["cuda_initialized"] is False
-        assert st["stage_seconds"].get("slab_rescues", 0) == 0
+        assert st["counts"].get("slab.rescues", 0) == 0
     got = open(tmp_path / "shard.glf.txt").read()
     assert "dip.map" in got
     assert got == open(tmp_path / "seq.glf.txt").read()
@@ -503,7 +503,7 @@ def test_engine_mesh_on_four_cards_equals_single(cuda, tmp_path):
         n0 = pair_hmm_dp.launches
         eng.detect_indels(wf, params.file_name + ".glf.txt")
         eng.close()
-        assert eng.stats.stage_seconds.get("slab_rescues", 0) == 0
+        assert eng.stats.counts.get("slab.rescues", 0) == 0
         launches.append(pair_hmm_dp.launches - n0)
         glfs.append(open(params.file_name + ".glf.txt").read())
     assert "dip.map" in glfs[0]

@@ -41,7 +41,7 @@ def no_slab_rescues(monkeypatch):
 
     def checked(eng):
         close(eng)
-        assert eng.stats.stage_seconds.get("slab_rescues", 0) == 0, (
+        assert eng.stats.counts.get("slab.rescues", 0) == 0, (
             "an engine rescued a slab")
     monkeypatch.setattr(window.WindowEngine, "close", checked)
 

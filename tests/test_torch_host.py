@@ -221,7 +221,7 @@ _NO_JAX = textwrap.dedent("""
 
     def _checked(eng):  # every engine must close with no slab rescued
         _close(eng)
-        assert not eng.stats.stage_seconds.get("slab_rescues"), "rescue"
+        assert not eng.stats.counts.get("slab.rescues"), "rescue"
     window.WindowEngine.close = _checked
 
     fa, bam = simulate("sim", [PlantedVariant(pos=500, var="-AC",

@@ -66,7 +66,11 @@ def _sequential(eng, tmp, tag, win_files):
     for wf, gp in zip(win_files, parts):
         eng.detect_indels(wf, gp)
     eng.close()
-    assert eng.stats.stage_seconds.get("slab_rescues", 0) == 0
+    # the JAX engine keeps its rescues in stage_seconds
+    rescues = (eng.stats.counts.get("slab.rescues", 0)
+               if isinstance(eng, BatchedWindowEngine)
+               else eng.stats.stage_seconds.get("slab_rescues", 0))
+    assert rescues == 0
     merge_glf(parts, str(tmp / f"{tag}.glf.txt"))
     return open(tmp / f"{tag}.glf.txt").read()
 
@@ -74,7 +78,7 @@ def _sequential(eng, tmp, tag, win_files):
 def _check_procs(per_proc):
     for st in per_proc:
         assert st["cuda_initialized"] is False
-        assert st["stage_seconds"].get("slab_rescues", 0) == 0
+        assert st["counts"].get("slab.rescues", 0) == 0
         assert st["windows_ok"] > 0
 
 
@@ -225,7 +229,7 @@ def test_server_failure_rescues_only_its_slab(sim, server, monkeypatch):
     assert len(slabs) >= 3
     # the failing slab's one window, re-scored on the server
     assert calls.count("dense") == 1
-    assert eng.stats.stage_seconds.get("slab_rescues") == 1
+    assert eng.stats.counts.get("slab.rescues") == 1
     # the combined fetch, then the failing slab alone
     assert [n for n, _ in fetches] == [len(slabs), 1]
     assert all("injected device fault" in e for _, e in fetches)
@@ -257,7 +261,7 @@ def test_server_failure_during_rescue_ends_run(sim, server, monkeypatch,
     finally:
         eng.close()
         proxy.close()
-    assert eng.stats.stage_seconds.get("slab_rescues") == 1
+    assert eng.stats.counts.get("slab.rescues") == 1
     assert eng.stats.windows_ok == 0
     if not lost:
         assert calls[-1] == "dense"

@@ -98,7 +98,7 @@ _BLOCKED_RUN = textwrap.dedent("""
 
     def _checked(eng):  # every engine must close with no slab rescued
         _close(eng)
-        assert not eng.stats.stage_seconds.get("slab_rescues"), "rescue"
+        assert not eng.stats.counts.get("slab.rescues"), "rescue"
     window.WindowEngine.close = _checked
     from dindel_tpu_torch.sim import PlantedVariant, SimConfig, simulate
 

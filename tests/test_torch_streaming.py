@@ -168,7 +168,7 @@ def test_streaming_equals_batched_f64(sim13, streaming13):
     eng = BatchedWindowEngine([bam], fa, p, device="cpu", batch_windows=8,
                               dtype=np.float64, exact_ties=True)
     _, glf = _glf(eng, wf, p)
-    assert eng.stats.stage_seconds.get("slab_rescues", 0) == 0
+    assert eng.stats.counts.get("slab.rescues", 0) == 0
     assert "dip.map" in glf
     assert glf == streaming13[1][1]
 
