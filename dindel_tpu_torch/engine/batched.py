@@ -71,7 +71,7 @@ from ..out.glf import OutputData, make_glf_output
 from ..parallel.mesh import Mesh, make_mesh
 from ..variants import read_window_file
 from .reads import ReadBuffer, WindowError, get_reads
-from .window import WindowEngine, check_guards_and_on_hap
+from .window import WindowEngine, check_guards_and_on_hap, with_next
 
 
 class BatchedWindowEngine(WindowEngine):
@@ -182,26 +182,33 @@ class BatchedWindowEngine(WindowEngine):
 
     def staged_windows(self, var_file: str):
         """Yield one staged entry per line of a window file, in order
-        (the read buffer slides across windows of one contig)."""
+        (the read buffer slides across windows of one contig, and reads
+        one window ahead; it is closed when the pass ends or stops)."""
         p = self.params
         self.buf = ReadBuffer()
         self.buf.reset = True
         old_tid = "-1"
-        for index, candidates in enumerate(
-                read_window_file(var_file, p.var_file_is_one_based), start=1):
-            p.tid = candidates.tid
-            if p.tid != old_tid:
-                self.buf.reset = True
-                old_tid = p.tid
-                self.buf.old_left_pos = 0
-            if candidates.left_pos < self.buf.old_left_pos:
-                raise RuntimeError(
-                    "Candidate variant files must be sorted on left "
-                    "position of window!")
-            yield self._stage_window(index, candidates)
+        try:
+            for index, (candidates, nxt) in enumerate(with_next(
+                    read_window_file(var_file, p.var_file_is_one_based)),
+                    start=1):
+                p.tid = candidates.tid
+                if p.tid != old_tid:
+                    self.buf.reset = True
+                    old_tid = p.tid
+                    self.buf.old_left_pos = 0
+                if candidates.left_pos < self.buf.old_left_pos:
+                    raise RuntimeError(
+                        "Candidate variant files must be sorted on left "
+                        "position of window!")
+                yield self._stage_window(index, candidates, nxt)
+        finally:
+            self.buf.close()
 
-    def _stage_window(self, index: int, candidates) -> dict:
-        """Host staging of one window: reads, haplotypes, hap<->ref NW."""
+    def _stage_window(self, index: int, candidates, nxt=None) -> dict:
+        """Host staging of one window: reads, haplotypes, hap<->ref NW;
+        `nxt` (get_reads' next_window) starts the next one's read intake
+        ahead."""
         p = self.params
         left_pos = candidates.left_pos
         right_pos = candidates.right_pos
@@ -212,7 +219,8 @@ class BatchedWindowEngine(WindowEngine):
         try:
             with self.stats.stage("get_reads"):
                 reads = get_reads(self.bams, p.tid, left_pos, right_pos, p,
-                                  self.libraries, self.buf, stats=self.stats)
+                                  self.libraries, self.buf, stats=self.stats,
+                                  next_window=nxt)
             self.buf.reset = False
             with self.stats.stage("hapgen"):
                 skip, haps, lp2, rp2 = self.get_haplotypes(

@@ -15,6 +15,8 @@ from typing import Dict, List, Optional, Tuple
 from ..config import Parameters
 from ..model import Library, LibraryCollection, Read, mean_first_base_position
 from ..io.bam import (BamReader, BamRecord, FDUP, FQCFAIL, FSUPPLEMENTARY)
+from ..io.bam_native import NativeBamReader
+from ..io.reads_intake import IntakeHandle, IntakeJob, NameTable, intake_lib
 from ..utils import phred_prob
 
 import numpy as _np_mod
@@ -85,21 +87,132 @@ class ReadBuffer:
     oldRightFetchReadPos in detectIndels, DInDel.cpp:1299-1306).
 
     Two representations share this carrier: `reads` (Read objects, the
-    loop/array impls) and the arena columns (`cols` + parallel `refs` /
-    `templates` lists, the production impl='arena' path, where Read
-    objects are materialized only for cascade survivors)."""
+    loop/array impls) and the arena columns (`cols`, the production
+    impl='arena' path, where Read objects are materialized only for
+    cascade survivors): each row's `blk`, `row` and `pool` name its
+    record in `arenas` and its BAM.
+
+    The arena path takes a window's new rows from the native read intake
+    (io/reads_intake.py), a job of one intake per BAM on a native thread.
+    Told the next window, it starts that window's job ahead, with the
+    arguments this buffer's rules give it if the buffer is not reset;
+    the next window takes the result when its own arguments are the
+    same, and otherwise discards it and runs its job itself.  The intake
+    handles and the qname table belong to one job at a time: a window
+    waits for the job ahead before it starts one.  close() waits for the
+    job and closes the handles."""
 
     def __init__(self):
         self.reads: List[Read] = []
         self.old_left_pos = 0
         self.old_right_fetch_read_pos = 0
         self.reset = True
-        self.tid: Optional[str] = None
         # arena-mode state
         self.cols: Optional[dict] = None
-        self.refs: List[tuple] = []        # (BamArena, row, pool_id)
-        self.templates: List[Optional[Read]] = []
-        self.qname_ids: dict = {}
+        self.arenas: dict = {}             # block id -> BamArena
+        self.n_blocks = 0                  # block ids given so far
+        self.left_most = 0                 # every row's pos is >= this
+        self._names = None                 # NameTable of the qname keys
+        self._handles: dict = {}           # BAM index -> IntakeHandle
+        self._ahead = None                 # (intake key, started job)
+
+    def intake(self, bams, key: tuple, stats=None) -> list:
+        """The intake of `key` = (tid, left_fetch, right_fetch, fresh):
+        the job ahead's when it was started for `key`, else one run
+        now."""
+        ahead, self._ahead = self._ahead, None
+        if ahead is not None:
+            if ahead[0] == key:
+                if stats is not None:
+                    stats.count("reads.ahead_used", 1)
+                return self._finish(ahead[1], stats)
+            self._settle(ahead, stats)
+        return self._finish(self._start(bams, key))
+
+    def read_ahead(self, bams, key: tuple, stats=None) -> None:
+        """Start the job of `key` ahead."""
+        if self._ahead is not None:
+            ahead, self._ahead = self._ahead, None
+            self._settle(ahead, stats)
+        self._ahead = (key, self._start(bams, key))
+
+    def _start(self, bams, key: tuple):
+        """(job or None, the error that ends the BAM list or None): the
+        job covers the BAMs before the first whose header lacks `tid`."""
+        tid, left_fetch, right_fetch, fresh = key
+        if self._names is None:
+            self._names = NameTable()
+        if fresh:
+            self._names.clear()
+        handles, tids, err = [], [], None
+        for b_idx, bam in enumerate(bams):
+            try:
+                tids.append(bam.header.tid_of(tid))
+            except KeyError:
+                err = WindowError("Cannot find ID!")
+                break
+            h = self._handles.get(b_idx)
+            if h is None:
+                h = self._handles[b_idx] = IntakeHandle(bam.path)
+            handles.append(h)
+        job = None
+        if handles:
+            # the names of rows the buffer no longer holds leave the table
+            job = IntakeJob(handles, self._names, tids,
+                            max(0, int(left_fetch)), int(right_fetch),
+                            int(left_fetch), 0 if fresh else self.left_most,
+                            FDUP | FQCFAIL | FSUPPLEMENTARY)
+        return job, err
+
+    @staticmethod
+    def _finish(started, stats=None) -> list:
+        """Per BAM, an IntakeBlock with its pool's columns; a BAM that
+        cannot be fetched ends the list with its error, which
+        _buffer_arenas raises after the earlier BAMs' own checks, in the
+        order of the reference's per-BAM loop.  With `stats`, the job's
+        seconds (its native thread's clock) go to get_reads.ahead."""
+        import numpy as np
+        job, err = started
+        out = []
+        if job is not None:
+            blocks = job.blocks()
+            if stats is not None:
+                stats.add_seconds("get_reads.ahead", job.seconds)
+            for b_idx, blk in enumerate(blocks):
+                if blk is None:
+                    out.append(_ArenaUnavailable())
+                    return out
+                c = blk.cols
+                c["mq"] = _MAPQ_TABLE[c.pop("mapq")]
+                c["pool"] = np.full(c["row"].shape[0], b_idx, np.int64)
+                out.append(blk)
+        if err is not None:
+            out.append(err)
+        return out
+
+    @staticmethod
+    def _settle(ahead, stats) -> None:
+        # wait for a discarded job, so the handles and the table are free
+        job = ahead[1][0]
+        if job is not None:
+            job.wait()
+        if stats is not None:
+            if job is not None:
+                stats.add_seconds("get_reads.ahead", job.seconds)
+            stats.count("reads.ahead_refetched", 1)
+
+    def close(self) -> None:
+        """Wait for the job ahead, close the intake handles and the qname
+        table."""
+        ahead, self._ahead = self._ahead, None
+        if ahead is not None:
+            self._settle(ahead, None)
+        for h in self._handles.values():
+            h.close()
+        self._handles = {}
+        if self._names is not None:
+            self._names.close()
+            self._names = None
 
 
 LEFTPAD = 200  # DInDel.cpp:917
@@ -119,7 +232,7 @@ def _u32(x: int) -> int:
 def get_reads(bams: List[BamReader], tid: str, left_pos: int, right_pos: int,
               params: Parameters, libraries: LibraryCollection,
               buf: ReadBuffer, impl: str = "arena",
-              stats=None) -> List[Read]:
+              stats=None, next_window=None) -> List[Read]:
     """DetInDel::getReads (DInDel.cpp:885-1262).
 
     impl='arena' (production) keeps the sliding buffer as raw BAM arena
@@ -129,19 +242,29 @@ def get_reads(bams: List[BamReader], tid: str, left_pos: int, right_pos: int,
     reference implementation.  All three are asserted identical in
     tests/test_reads_array.py.
 
+    next_window ((tid, left_pos, right_pos) of the window the caller
+    stages next, or None): the arena path starts that window's intake
+    ahead (ReadBuffer.read_ahead).
+
     stats (an engine.stats.RunStats, or None for none): the arena path
-    times its stages get_reads.fetch, get_reads.buffer and
-    get_reads.cascade and counts reads.records_fetched (arena rows the
-    fetch decoded) and reads.kept (reads returned)."""
+    times its stages get_reads.fetch (the intake, or the wait for the
+    job ahead and the copy of its rows), get_reads.buffer and
+    get_reads.cascade, and adds the seconds of each job ahead it takes
+    to get_reads.ahead; it counts reads.records_fetched
+    (records the intake decoded), reads.kept (reads returned),
+    reads.ahead_used (intakes taken from the read-ahead) and
+    reads.ahead_refetched (read-aheads discarded)."""
     if left_pos < buf.old_left_pos:
         raise RuntimeError("Windows are not sorted!")
     if int(right_pos - left_pos) < 3 * params.min_read_overlap:
         raise WindowError("Choose a larger width or a smaller minReadOverlap.")
     if impl == "arena":
-        if all(hasattr(b, "fetch_arena") for b in bams):
+        if (all(isinstance(b, NativeBamReader) for b in bams)
+                and intake_lib() is not None):
             try:
                 return _get_reads_arena(bams, tid, left_pos, right_pos,
-                                        params, libraries, buf, stats)
+                                        params, libraries, buf, stats,
+                                        next_window)
             except _ArenaUnavailable:
                 pass  # no .bai: record-iterator path below
         impl = "array"  # pure-Python reader fallback
@@ -315,14 +438,16 @@ def get_reads(bams: List[BamReader], tid: str, left_pos: int, right_pos: int,
 
 def _get_reads_arena(bams, tid: str, left_pos: int, right_pos: int,
                      params: Parameters, libraries: LibraryCollection,
-                     buf: ReadBuffer, stats=None) -> List[Read]:
+                     buf: ReadBuffer, stats=None,
+                     next_window=None) -> List[Read]:
     """getReads with the sliding buffer held as raw BAM arena columns
-    (io.bam_native.BamArena): the fetch, the flag prefilter, the
-    duplicate check and the whole filter cascade run as array ops, and
-    Read/BamRecord objects are materialized (via the same read_from_bam
-    as the other impls — field-for-field identical) only for cascade
-    survivors.  ~6x fewer per-record Python constructions per window on
-    30x data, where most fetched records fail the overlap filters."""
+    (io.bam_native.BamArena): the native intake (io/reads_intake.py)
+    decodes each BAM's records and does the flag and position prefilter
+    and the qname keys; the buffer's slide, the duplicate check and the
+    whole filter cascade run as array ops, and Read objects are
+    materialized (field-for-field as read_from_bam) only for cascade
+    survivors.  With `next_window` the next window's intake starts
+    ahead once this window's buffer is built."""
     max_dev = int(libraries.get_max_insert_size())
     right_fetch = right_pos + max_dev
     right_most = right_pos + max_dev
@@ -339,31 +464,21 @@ def _get_reads_arena(bams, tid: str, left_pos: int, right_pos: int,
         return (stats.stage(name) if stats is not None
                 else contextlib.nullcontext())
 
-    # the native fetch of each BAM; one that cannot be fetched ends the
-    # list with its error, which _buffer_arenas raises after the earlier
-    # BAMs' own checks, in the order of the reference's per-BAM loop
     fetched = []
     if left_fetch <= right_fetch:
         with stage("get_reads.fetch"):
-            for bam in bams:
-                try:
-                    bam_tid = bam.header.tid_of(tid)
-                except KeyError:
-                    fetched.append(WindowError("Cannot find ID!"))
-                    break
-                arena = bam.fetch_arena(bam_tid, max(0, int(left_fetch)),
-                                        int(right_fetch))
-                if arena is None:
-                    fetched.append(_ArenaUnavailable())
-                    break
-                fetched.append(arena)
+            fetched = buf.intake(bams, (tid, left_fetch, right_fetch, fresh),
+                                 stats)
         if stats is not None:
             stats.count("reads.records_fetched", sum(
-                a.fixed.shape[0] for a in fetched
-                if not isinstance(a, Exception)))
+                b.n_decoded for b in fetched if not isinstance(b, Exception)))
     with stage("get_reads.buffer"):
         _buffer_arenas(buf, fresh, fetched, left_fetch, right_fetch,
                        left_most, params)
+    if next_window is not None:
+        key = _ahead_key(buf, next_window, max_dev)
+        if key is not None:
+            buf.read_ahead(bams, key, stats)
     with stage("get_reads.cascade"):
         reads = _cascade_arena(buf, left_pos, right_pos, left_most,
                                right_most, params, libraries, rg2libs)
@@ -372,86 +487,73 @@ def _get_reads_arena(bams, tid: str, left_pos: int, right_pos: int,
     return reads
 
 
+def _ahead_key(buf: ReadBuffer, next_window, max_dev: int):
+    """The intake key of the next window by the rules of _get_reads_arena,
+    for this buffer if it is not reset; None when it fetches nothing."""
+    tid, left_pos, right_pos = next_window
+    right_fetch = right_pos + max_dev
+    left_fetch = _u32(left_pos - max_dev - LEFTPAD)
+    if left_fetch < buf.old_right_fetch_read_pos:
+        left_fetch = buf.old_right_fetch_read_pos
+    if left_fetch > right_fetch:
+        return None
+    return (tid, left_fetch, right_fetch, False)
+
+
+def _empty_cols() -> dict:
+    import numpy as np
+    i64 = lambda: np.empty(0, np.int64)
+    b = lambda: np.empty(0, bool)
+    return dict(pos=i64(), size=i64(), end=i64(), unmapped=b(),
+                mate_unm=b(), same_tid=b(), mq=np.empty(0, np.float64),
+                reverse=b(), mate_pos0=i64(), qid=i64(), row=i64(),
+                pool=i64(), blk=i64())
+
+
 def _buffer_arenas(buf: ReadBuffer, fresh: bool, fetched: list,
                    left_fetch: int, right_fetch: int, left_most: int,
                    params: Parameters) -> None:
     """The arena buffer slid to left_most (emptied when `fresh`), the
-    fetched arenas' new rows appended (flag and position prefilter,
-    qname ids), then the duplicate check."""
+    intake's rows appended after the per-BAM cap checks, then the
+    duplicate check: array ops only."""
     import numpy as np
-    from ..io.bam import FREVERSE, FUNMAP, FMUNMAP
 
-    empty_cols = lambda: dict(
-        pos=np.empty(0, np.int64), size=np.empty(0, np.int64),
-        end=np.empty(0, np.int64), unmapped=np.empty(0, bool),
-        mate_unm=np.empty(0, bool), same_tid=np.empty(0, bool),
-        mq=np.empty(0, np.float64), reverse=np.empty(0, bool),
-        mate_pos0=np.empty(0, np.int64), qid=np.empty(0, np.int64))
-
+    buf.left_most = left_most
     if fresh:
-        buf.cols = empty_cols()
-        buf.refs = []
-        buf.templates = []
-        buf.qname_ids = {}
+        buf.cols = _empty_cols()
+        buf.arenas = {}
         buf.old_right_fetch_read_pos = right_fetch
     else:
         keep = buf.cols["pos"] >= left_most
         if not keep.all():
             buf.cols = {k: v[keep] for k, v in buf.cols.items()}
-            kl = keep.tolist()
-            buf.refs = [r for r, k in zip(buf.refs, kl) if k]
-            buf.templates = [t for t, k in zip(buf.templates, kl) if k]
+            # arenas older than every row left are no longer read
+            lo = (int(buf.cols["blk"].min()) if buf.cols["blk"].shape[0]
+                  else buf.n_blocks)
+            buf.arenas = {k: a for k, a in buf.arenas.items() if k >= lo}
 
     if left_fetch <= right_fetch:
         cap = params.max_reads * 100
-        new_blocks = []
-        for b_idx, arena in enumerate(fetched):
-            if isinstance(arena, Exception):
-                raise arena
-            flags = arena.fixed[:, 3]
-            keep = (flags & (FDUP | FQCFAIL | FSUPPLEMENTARY)) == 0
-            rows = np.nonzero(keep)[0]
-            if len(buf.refs) + rows.shape[0] > cap:
+        n_buf = buf.cols["pos"].shape[0]
+        for blk in fetched:
+            if isinstance(blk, Exception):
+                raise blk
+            if n_buf + blk.n_flag_kept > cap:
                 raise WindowError("Too many reads in region")
-            new_blocks.append((arena, rows, b_idx))
         buf.old_right_fetch_read_pos = right_fetch
 
-        for arena, rows, b_idx in new_blocks:
-            pos_a = arena.fixed[rows, 1].astype(np.int64)
-            inbuf = pos_a >= left_fetch
-            rows = rows[inbuf]
-            if rows.shape[0] == 0:
+        parts = [buf.cols]
+        for blk in fetched:
+            n = blk.cols["row"].shape[0]
+            if n == 0:
                 continue
-            pos_a = pos_a[inbuf]
-            fx = arena.fixed[rows]
-            flags = fx[:, 3]
-            size_a = (arena.seq_off[rows + 1] - arena.seq_off[rows])
-            end_a = arena.end_pos_vec()[rows]
-            mq_a = _MAPQ_TABLE[np.clip(fx[:, 2], 0, 255)]
-            qids = np.empty(rows.shape[0], np.int64)
-            qn_ids = buf.qname_ids
-            qb = arena.qname_b
-            qoff = arena.qname_off
-            for k, row in enumerate(rows.tolist()):
-                nm = qb[qoff[row]:qoff[row + 1]]
-                qi = qn_ids.get(nm)
-                if qi is None:
-                    qi = len(qn_ids)
-                    qn_ids[nm] = qi
-                qids[k] = qi
-            block = dict(
-                pos=pos_a, size=size_a.astype(np.int64), end=end_a,
-                unmapped=(flags & FUNMAP) != 0,
-                mate_unm=(flags & FMUNMAP) != 0,
-                same_tid=fx[:, 4] == fx[:, 0],
-                mq=mq_a,
-                reverse=(flags & FREVERSE) != 0,
-                mate_pos0=fx[:, 5].astype(np.int64),
-                qid=qids)
-            buf.cols = {k: np.concatenate([buf.cols[k], block[k]])
+            buf.arenas[buf.n_blocks] = blk.arena
+            parts.append(dict(blk.cols,
+                              blk=np.full(n, buf.n_blocks, np.int64)))
+            buf.n_blocks += 1
+        if len(parts) > 1:
+            buf.cols = {k: np.concatenate([p[k] for p in parts])
                         for k in buf.cols}
-            buf.refs.extend((arena, int(r), b_idx) for r in rows)
-            buf.templates.extend([None] * rows.shape[0])
 
     # duplicate check (DInDel.cpp:1018-1034)
     if buf.cols["qid"].shape[0]:
@@ -465,17 +567,16 @@ def _cascade_arena(buf: ReadBuffer, left_pos: int, right_pos: int,
                    libraries: LibraryCollection, rg2libs) -> List[Read]:
     """The filter cascade over the arena buffer, survivors materialized
     straight from the arena columns."""
-    templates = buf.templates
-    refs = buf.refs
+    cols = buf.cols
+    blk, row, pool = cols["blk"], cols["row"], cols["pool"]
 
-    def materialize(i: int) -> Read:
-        t = templates[i]
-        if t is None:
-            arena, row, pool = refs[i]
-            t = read_from_bam(arena.record(row), libraries, pool,
-                              rg2libs[pool])
-            templates[i] = t
-        return t
+    def ref(i: int) -> tuple:
+        return buf.arenas[int(blk[i])], int(row[i]), int(pool[i])
+
+    def lib_of(j: int):
+        arena, r, p = ref(j)
+        return read_from_bam(arena.record(r), libraries, p,
+                             rg2libs[p]).get_library()
 
     # With only the built-in single_end library loaded (no --libFile),
     # EVERY paired read resolves to unknown_lib + the single_end
@@ -492,14 +593,14 @@ def _cascade_arena(buf: ReadBuffer, left_pos: int, right_pos: int,
         read_from_bam (asserted loop==array==arena in
         tests/test_reads_array.py and vs the compiled reference in
         tests/test_reads_ref.py)."""
-        stats = _batch_pos_stats([refs[i] for i in idxs])
-        return [_read_from_arena(refs[i], buf.cols, i, libraries,
-                                 rg2libs, skip_rg, pos_stat=st)
-                for i, st in zip(idxs, stats)]
+        refs = [ref(i) for i in idxs]
+        stats = _batch_pos_stats(refs)
+        return [_read_from_arena(rf, cols, i, libraries, rg2libs, skip_rg,
+                                 pos_stat=st)
+                for rf, i, st in zip(refs, idxs, stats)]
 
-    return _cascade_core(buf.cols, left_pos, right_pos, left_most,
-                         right_most, params, materialize,
-                         lib_of=lambda j: materialize(j).get_library(),
+    return _cascade_core(cols, left_pos, right_pos, left_most, right_most,
+                         params, materialize=None, lib_of=lib_of,
                          materialize_batch=materialize_batch)
 
 
@@ -620,7 +721,7 @@ def _read_from_arena(ref, cols, i, libraries, rg2libs,
     flag = int(arena.fixed[row, 3])
     s0 = arena.seq_off[row]
     s1 = arena.seq_off[row + 1]
-    seq = arena.seq_b[s0:s1].decode()
+    seq = bytes(arena.seq_b[s0:s1]).decode()
     qual = _PHRED_TABLE[_np.frombuffer(arena.qual_b[s0:s1], _np.uint8)]
     raw = _np.ascontiguousarray(
         arena.cigar[arena.cigar_off[row]:arena.cigar_off[row + 1]])
@@ -669,7 +770,8 @@ def _read_from_arena(ref, cols, i, libraries, rg2libs,
             a1 = arena.aux_off[row + 1]
             rg = None
             if a1 > a0:
-                for tag, _typ, val in _parse_tags(arena.aux_b[a0:a1], 0):
+                for tag, _typ, val in _parse_tags(bytes(arena.aux_b[a0:a1]),
+                                                  0):
                     if tag == "RG":
                         rg = val
                         break

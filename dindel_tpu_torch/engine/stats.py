@@ -7,7 +7,8 @@ wrote (ok and error rows), host seconds per stage (`stage`) and work
 counted where it happens (`count`).  While a torch profiler is
 recording, each stage is also a `layer.<stage>` span on the thread that
 ran it, in the same trace as the device's events; with no profiler, a
-stage opens no span."""
+stage opens no span.  Work that runs on no Python thread adds its own
+clock's seconds to a stage (`add_seconds`), with no span."""
 
 from __future__ import annotations
 
@@ -56,6 +57,13 @@ class RunStats:
             with self.lock:
                 self.stage_seconds[name] = (self.stage_seconds.get(name, 0.0)
                                             + dt)
+
+    def add_seconds(self, name: str, seconds: float) -> None:
+        """Seconds of a stage that ran on no Python thread (a native
+        thread's own clock)."""
+        with self.lock:
+            self.stage_seconds[name] = (self.stage_seconds.get(name, 0.0)
+                                        + seconds)
 
     def count(self, name: str, n: int) -> None:
         with self.lock:

@@ -121,6 +121,19 @@ def _safe_cigar(hap, read, ml, ref_seq_pos):
         return None
 
 
+def with_next(windows):
+    """(window line, get_reads' next_window for the line after it, or
+    None at the last) for each line: the window loops tell get_reads the
+    next window, whose read intake it starts ahead."""
+    it = iter(windows)
+    cur = next(it, None)
+    while cur is not None:
+        nxt = next(it, None)
+        yield cur, (None if nxt is None
+                    else (nxt.tid, nxt.left_pos, nxt.right_pos))
+        cur = nxt
+
+
 class WindowEngine:
     def __init__(self, bam_paths: List[str], fasta_path: str,
                  params: Parameters, libraries: Optional[LibraryCollection] = None,
@@ -400,65 +413,73 @@ class WindowEngine:
         self.buf = ReadBuffer()
         self.buf.reset = True
         all_rows = []
-        for candidates in read_window_file(var_file, p.var_file_is_one_based):
-            index += 1
-            left_pos = candidates.left_pos
-            right_pos = candidates.right_pos
-            pos = candidates.center_pos
-            p.tid = candidates.tid
-            if p.tid != old_tid:
-                self.buf.reset = True
-                old_tid = p.tid
-                self.buf.old_left_pos = 0
-            if left_pos < self.buf.old_left_pos:
-                raise RuntimeError(
-                    "Candidate variant files must be sorted on left position of window!")
-            message = "ok"
-            skipped = False
-            self.stats.windows_total += 1
-            try:
-                with self.stats.stage("get_reads"):
-                    reads = get_reads(self.bams, p.tid, left_pos, right_pos, p,
-                                      self.libraries, self.buf,
-                                      stats=self.stats)
-                self.buf.reset = False
-                if p.show_reads:
-                    _show_reads(reads)
-                # the reference dispatches on inferenceMethod and silently
-                # does NOTHING for any value other than "empirical"
-                # (DInDel.cpp:1365) — mirrored here, quirk and all
-                rows = []
-                if p.inference_method == "empirical":
-                    rows = self.empirical_distribution_method(
-                        index, reads, pos, left_pos, right_pos, candidates,
-                        glf_data)
-                all_rows.extend(rows)
-                self.stats.windows_ok += 1
-                self.stats.reads_processed += len(reads)
-            except WindowError as e:
-                message = "error_" + str(e).replace(" ", "_")
-                self.stats.record_error(message)
-                skipped = True
-            except MemoryError:
-                message = "error_bad_alloc"
-                self.stats.record_error(message)
-                skipped = True
-            if skipped:
-                line = glf_data.line()
-                line.set("msg", message)
-                line.set("index", index)
-                line.set("tid", p.tid)
-                line.set("lpos", left_pos)
-                line.set("rpos", right_pos)
-                glf_data.output(line)
-                self.buf.reset = True
-            else:
-                self.buf.reset = False
-            self.buf.old_left_pos = left_pos
-        out.close()
+        try:
+            for candidates, nxt in with_next(
+                    read_window_file(var_file, p.var_file_is_one_based)):
+                index += 1
+                left_pos = candidates.left_pos
+                right_pos = candidates.right_pos
+                pos = candidates.center_pos
+                p.tid = candidates.tid
+                if p.tid != old_tid:
+                    self.buf.reset = True
+                    old_tid = p.tid
+                    self.buf.old_left_pos = 0
+                if left_pos < self.buf.old_left_pos:
+                    raise RuntimeError(
+                        "Candidate variant files must be sorted on left "
+                        "position of window!")
+                message = "ok"
+                skipped = False
+                self.stats.windows_total += 1
+                try:
+                    with self.stats.stage("get_reads"):
+                        reads = get_reads(
+                            self.bams, p.tid, left_pos, right_pos, p,
+                            self.libraries, self.buf, stats=self.stats,
+                            next_window=nxt)
+                    self.buf.reset = False
+                    if p.show_reads:
+                        _show_reads(reads)
+                    # the reference dispatches on inferenceMethod and
+                    # silently does NOTHING for any value other than
+                    # "empirical" (DInDel.cpp:1365) — mirrored here, quirk
+                    # and all
+                    rows = []
+                    if p.inference_method == "empirical":
+                        rows = self.empirical_distribution_method(
+                            index, reads, pos, left_pos, right_pos,
+                            candidates, glf_data)
+                    all_rows.extend(rows)
+                    self.stats.windows_ok += 1
+                    self.stats.reads_processed += len(reads)
+                except WindowError as e:
+                    message = "error_" + str(e).replace(" ", "_")
+                    self.stats.record_error(message)
+                    skipped = True
+                except MemoryError:
+                    message = "error_bad_alloc"
+                    self.stats.record_error(message)
+                    skipped = True
+                if skipped:
+                    line = glf_data.line()
+                    line.set("msg", message)
+                    line.set("index", index)
+                    line.set("tid", p.tid)
+                    line.set("lpos", left_pos)
+                    line.set("rpos", right_pos)
+                    glf_data.output(line)
+                    self.buf.reset = True
+                else:
+                    self.buf.reset = False
+                self.buf.old_left_pos = left_pos
+        finally:
+            self.buf.close()
+            out.close()
         return all_rows
 
     def close(self):
+        self.buf.close()
         for b in self.bams:
             b.close()
         self.fasta.close()

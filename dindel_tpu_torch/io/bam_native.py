@@ -184,65 +184,17 @@ class NativeBamReader:
             return
         yield from self._drain_batch()
 
-    def fetch_arena(self, tid: int, beg: int, end: int):
-        """bam_fetch into a BamArena (raw column arrays, no per-record
-        Python objects) — the array-level ingest path of engine.reads.
-        Returns None when no .bai is usable (callers fall back to the
-        record iterator)."""
-        got = self._lib.dbam_fetch(self._h, tid, beg, end)
-        if got < 0:
-            return None
-        return self._drain_arena()
-
-    def _drain_arena(self) -> "BamArena":
-        lib = self._lib
-        c = ctypes.c_int64
-        n, qn, cg, sq, ax = c(), c(), c(), c(), c()
-        lib.dbam_arena_sizes(self._h, ctypes.byref(n), ctypes.byref(qn),
-                             ctypes.byref(cg), ctypes.byref(sq),
-                             ctypes.byref(ax))
-        n = n.value
-        fixed = np.empty((max(n, 1), 8), np.int32)
-        qname = ctypes.create_string_buffer(max(qn.value, 1))
-        qname_off = np.empty(n + 1, np.int64)
-        cigar = np.empty(max(cg.value, 1), np.uint32)
-        cigar_off = np.empty(n + 1, np.int64)
-        seq = ctypes.create_string_buffer(max(sq.value, 1))
-        qual = ctypes.create_string_buffer(max(sq.value, 1))
-        seq_off = np.empty(n + 1, np.int64)
-        aux = ctypes.create_string_buffer(max(ax.value, 1))
-        aux_off = np.empty(n + 1, np.int64)
-        if n:
-            lib.dbam_batch(self._h, fixed, qname, qname_off, cigar,
-                           cigar_off, seq, qual, seq_off, aux, aux_off)
-        else:
-            qname_off[:] = 0
-            cigar_off[:] = 0
-            seq_off[:] = 0
-            aux_off[:] = 0
-        return BamArena(fixed[:n], qname.raw[:qn.value], qname_off,
-                        cigar[:cg.value], cigar_off, seq.raw[:sq.value],
-                        qual.raw[:sq.value], seq_off, aux.raw[:ax.value],
-                        aux_off)
-
-
-# CIGAR op nibble -> consumes-reference (M,D,N,=,X) per bam_calend
-_REF_CONSUME = np.zeros(16, np.int64)
-for _i, _op in enumerate(CIGAR_OPS):
-    if _op in "MDN=X":
-        _REF_CONSUME[_i] = 1
-
 
 class BamArena:
     """A fetched batch as raw column arrays (fixed int32 (n, 8) in
     tid/pos/mapq/flag/mtid/mpos/isize/l_seq order + offset-indexed byte
-    arenas).  Vector accessors serve the get_reads filter cascade without
-    materializing records; record(i) materializes one BamRecord (same
-    fields as _drain_batch) for the survivors."""
+    arenas, bytes-like), the decoded records behind a window's read
+    intake (io/reads_intake.py); record(i) materializes one BamRecord
+    (same fields as _drain_batch) for the get_reads survivors."""
 
     __slots__ = ("fixed", "qname_b", "qname_off", "cigar", "cigar_off",
                  "seq_b", "qual_b", "seq_off", "aux_b", "aux_off",
-                 "_end", "_records")
+                 "_records")
 
     def __init__(self, fixed, qname_b, qname_off, cigar, cigar_off,
                  seq_b, qual_b, seq_off, aux_b, aux_off):
@@ -256,28 +208,14 @@ class BamArena:
         self.seq_off = seq_off
         self.aux_b = aux_b
         self.aux_off = aux_off
-        self._end = None
         self._records = {}
 
     @property
     def n(self) -> int:
         return self.fixed.shape[0]
 
-    def end_pos_vec(self) -> np.ndarray:
-        """Vectorized BamRecord.end_pos: pos + ref-consuming cigar
-        lengths, pos + 1 when the cigar is empty."""
-        if self._end is None:
-            vals = (self.cigar.astype(np.int64) >> 4) * _REF_CONSUME[
-                self.cigar & 0xF]
-            c = np.concatenate([[0], np.cumsum(vals)])
-            seg = c[self.cigar_off[1:]] - c[self.cigar_off[:-1]]
-            empty = self.cigar_off[1:] == self.cigar_off[:-1]
-            self._end = self.fixed[:, 1].astype(np.int64) + np.where(
-                empty, 1, seg)
-        return self._end
-
     def qname_bytes(self, i: int) -> bytes:
-        return self.qname_b[self.qname_off[i]:self.qname_off[i + 1]]
+        return bytes(self.qname_b[self.qname_off[i]:self.qname_off[i + 1]])
 
     def record(self, i: int) -> BamRecord:
         rec = self._records.get(i)
@@ -295,9 +233,9 @@ class BamArena:
                 qname=self.qname_bytes(i).decode(),
                 flag=flag, tid=tid, pos=pos, mapq=mapq, cigar=cig,
                 mtid=mtid, mpos=mpos, isize=isize,
-                seq=self.seq_b[s0:s1].decode(),
-                qual=self.qual_b[s0:s1],
-                aux_raw=self.aux_b[a0:a1] if a1 > a0 else None)
+                seq=bytes(self.seq_b[s0:s1]).decode(),
+                qual=bytes(self.qual_b[s0:s1]),
+                aux_raw=bytes(self.aux_b[a0:a1]) if a1 > a0 else None)
             # raw packed (len<<4|op) view for native consumers (hapdist)
             rec.cigar_raw = np.ascontiguousarray(
                 self.cigar[self.cigar_off[i]:self.cigar_off[i + 1]])

@@ -3,7 +3,8 @@ JAX package builds too) into this package's own build directory,
 ``dindel_tpu_torch/build/``, so that the two packages never share or race
 on a shared library.  Used by the ctypes loaders of io/bam_native.py,
 engine/hapgen_native.py, engine/std_sort.py, hmm/decode_native.py and
-align/nw.py."""
+align/nw.py, and of io/reads_intake.py from the port's own
+native/reads_intake.cpp."""
 
 from __future__ import annotations
 
@@ -20,17 +21,20 @@ _lock = threading.Lock()
 
 
 def native_so(src_name: str, so_name: str, flags: Sequence[str] = ("-O2",),
-              libs: Sequence[str] = ()) -> Optional[Path]:
+              libs: Sequence[str] = (),
+              deps: Sequence[str] = ()) -> Optional[Path]:
     """Path of build/<so_name>, compiled with g++ from native/<src_name>
-    when it is missing or older than its source (into a temporary name,
-    then renamed, so concurrent processes never load a half-written
-    file).  None, with a warning on stderr, when it cannot be built: the
-    caller then takes its python path."""
+    when it is missing or older than its source or a native/<dep> that
+    the source includes (into a temporary name, then renamed, so
+    concurrent processes never load a half-written file).  None, with a
+    warning on stderr, when it cannot be built: the caller then takes
+    its python path."""
     src = NATIVE_DIR / src_name
     so = BUILD_DIR / so_name
     with _lock:
-        fresh = so.exists() and not (
-            src.exists() and src.stat().st_mtime > so.stat().st_mtime)
+        fresh = so.exists() and not any(
+            f.exists() and f.stat().st_mtime > so.stat().st_mtime
+            for f in [src, *(NATIVE_DIR / d for d in deps)])
         if fresh or not src.exists():
             return so if so.exists() else None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

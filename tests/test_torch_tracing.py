@@ -68,8 +68,9 @@ def _run(eng, sim, tag):
 
 def test_spans_under_profiler(sim):
     """Every stage is a layer.<stage> span; each sub-stage lies inside
-    its layer's span on the same thread, and batch_wait is on the thread
-    that drives the engine."""
+    its layer's span on the same thread; batch_wait, get_reads and its
+    sub-stages are on the thread that drives the engine; the read-ahead's
+    native thread adds get_reads.ahead seconds and opens no span."""
     eng = _batched(sim, "spans")
     path = sim[0] / "spans.trace.json"
     with torch.profiler.profile(
@@ -94,7 +95,11 @@ def test_spans_under_profiler(sim):
                            for p in spans[layer]), (sub, s)
     assert len(spans["batch_wait"]) >= 2
     assert {s["tid"] for s in spans["batch_wait"]} == {main_tid}
-    assert {s["tid"] for s in spans["get_reads"]} == {main_tid}
+    for name in ("get_reads",) + SUB_STAGES["get_reads"]:
+        assert {s["tid"] for s in spans[name]} == {main_tid}, name
+    # the read-ahead's intake runs on a native thread: seconds, no span
+    assert "get_reads.ahead" not in spans
+    assert eng.stats.stage_seconds["get_reads.ahead"] > 0
 
 
 def test_no_span_without_profiler(sim, monkeypatch):
@@ -207,10 +212,27 @@ def test_error_window_counted_once_when_written(sim, monkeypatch, where):
     assert eng.stats.windows_ok >= 2
 
 
+def test_read_ahead_counts_add_up(sim):
+    """The read-ahead's counters and its stage, timed on its native
+    thread and added from the main thread, add up: every window but the
+    first takes its intake from the job ahead, and the main thread's
+    wait for it stays inside get_reads.fetch."""
+    eng = _batched(sim, "ahead")
+    _run(eng, sim, "ahead")
+    c, st = eng.stats.counts, eng.stats.stage_seconds
+    n = eng.stats.windows_total
+    assert n >= 3
+    assert c["reads.ahead_used"] + c.get("reads.ahead_refetched", 0) \
+        == n - 1
+    assert c["reads.ahead_used"] == n - 1
+    assert st["get_reads.ahead"] > 0
+    assert st["get_reads.fetch"] <= st["get_reads"]
+
+
 def test_counts_and_stages_from_threads_lose_nothing():
-    """The finish worker and the main thread count and time stages on one
-    RunStats: with more threads than cores and a short switch interval,
-    no increment is lost."""
+    """The finish worker and the main thread count and time stages (and
+    add a native thread's seconds) on one RunStats: with more threads
+    than cores and a short switch interval, no increment is lost."""
     import sys
     import threading
 
@@ -220,6 +242,7 @@ def test_counts_and_stages_from_threads_lose_nothing():
     def work():
         for _ in range(n):
             stats.count("c", 1)
+            stats.add_seconds("a", 1.0)
             with stats.stage("s"):
                 pass
     old = sys.getswitchinterval()
@@ -235,3 +258,4 @@ def test_counts_and_stages_from_threads_lose_nothing():
     assert not any(t.is_alive() for t in threads)
     assert stats.counts == {"c": n_threads * n}
     assert stats.stage_seconds["s"] > 0
+    assert stats.stage_seconds["a"] == n_threads * n
