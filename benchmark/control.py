@@ -31,19 +31,21 @@ sys.path.insert(0, str(ROOT))
 def control_rows(cfg, data, lines, chosen, device):
     """{index: rows} of the control for the chosen windows."""
     import torch
-    from benchmark.reference.caller import diploid_params, glf_rows
+    from benchmark import spec
     if "float64" not in cfg["precision"]:
-        return glf_rows(data["fasta"], data["bam"],
-                        {i: lines[i - 1] for i in chosen},
-                        diploid_params(cfg.get("dindel_flags", {})),
-                        device=device, dtype=torch.bfloat16)
+        reference = spec.reference(cfg.get("reference", "caller"))
+        return reference.glf_rows(data["fasta"], data["bams"],
+                                  {i: lines[i - 1] for i in chosen},
+                                  cfg.get("dindel_flags", {}),
+                                  device=device, dtype=torch.bfloat16)
     from benchmark import check, drive
     work = Path(data["windows"]).parent
     sub = work / "control_windows.txt"
     order = sorted(chosen)
     sub.write_text("\n".join(lines[i - 1] for i in order) + "\n")
     low = dict(cfg, cli=list(cfg["cli"]) + ["--hmmBackend", "pallas"])
-    eng = drive.build_engine(low, data["fasta"], data["bam"], device)
+    eng = drive.build_engine(low, data["fasta"], data["bams"],
+                             data["bam_list"], device)
     try:
         eng.detect_indels(str(sub), str(work / "control.glf.txt"))
     finally:
@@ -58,9 +60,9 @@ def control_rows(cfg, data, lines, chosen, device):
 
 def one_seed(cfg, traffic, seed, device):
     import torch
-    from benchmark import check
+    from benchmark import check, spec
     from benchmark.gen import make_dataset
-    from benchmark.reference.caller import diploid_params, glf_rows
+    reference = spec.reference(cfg.get("reference", "caller"))
     with tempfile.TemporaryDirectory(prefix="dindel_control_") as work:
         data = make_dataset(str(Path(work) / "data"), cfg["sequencing"],
                             traffic, seed)
@@ -68,12 +70,13 @@ def one_seed(cfg, traffic, seed, device):
                  if x.strip()]
         chosen = check.sample([{i + 1: [] for i in range(len(lines))}],
                               len(lines), int(cfg["check_windows"]), seed)
-        ref = glf_rows(data["fasta"], data["bam"],
-                       {i: lines[i - 1] for i in chosen},
-                       diploid_params(cfg.get("dindel_flags", {})),
-                       device=device, dtype=torch.float64)
+        ref = reference.glf_rows(data["fasta"], data["bams"],
+                                 {i: lines[i - 1] for i in chosen},
+                                 cfg.get("dindel_flags", {}),
+                                 device=device, dtype=torch.float64)
         low = control_rows(cfg, data, lines, chosen, device)
-        nums = check.numbers([low], ref)
+        nums = check.numbers([low], ref, check.row_comparison(
+            cfg.get("value_columns", check.VALUES), reference))
     return nums
 
 
@@ -94,6 +97,7 @@ def main(argv=None) -> int:
         device = "cpu"
     for seed in args.seeds:
         nums = one_seed(cfg, traffic, seed, device)
+        nums.pop("per_window")
         print(json.dumps(dict(workload=args.workload, seed=seed, **nums)),
               flush=True)
     return 0

@@ -1,4 +1,4 @@
-"""The timed path: the program's engine built as its CLI builds it, driven
+"""The timed path: the program's engine as its CLI builds it, driven
 over the window file in whole passes, and the rate of windows completed.
 
 A pass is one `detect_indels` call over the window file, as a user runs
@@ -34,51 +34,78 @@ class WindowClosed(BaseException):
 
 class HarnessStats(RunStats):
     """The program's RunStats, with the window's deadline checked where a
-    window's staging begins and, in a traced run, each stage wrapped in a
-    profiler span named layer.<stage>."""
+    window's staging begins.  (Its stages open the program's own
+    `layer.<stage>` spans while the profiler records.)"""
 
     def __init__(self):
         super().__init__()
         self.deadline = None
-        self.spans = False
 
     @contextlib.contextmanager
     def stage(self, name: str):
         if (name == "get_reads" and self.deadline is not None
                 and time.perf_counter() >= self.deadline):
             raise WindowClosed()
-        with contextlib.ExitStack() as st:
-            if self.spans:
-                import torch
-                st.enter_context(torch.profiler.record_function(
-                    "layer." + name))
-            st.enter_context(super().stage(name))
+        with super().stage(name):
             yield
 
 
-def build_engine(cfg: dict, fasta: str, bam: str, device: str):
-    """The engine of `--analysis indels` for the configuration's CLI
-    arguments, constructed as the CLI's _indels constructs it, with the
-    harness's RunStats in place of its own."""
-    import numpy as np
-    from dindel_tpu_torch import cli
-    from dindel_tpu_torch.model import LibraryCollection
+class _Built(BaseException):
+    """Carries the engine the CLI constructed out of the CLI."""
 
-    args = cli.build_parser().parse_args(
-        list(cfg["cli"]) + ["--bamFile", bam, "--ref", fasta,
-                            "--device", device])
-    params = cli.params_from_args(args)
-    if args.engine == "batched" and params.slower:
-        from dindel_tpu_torch.engine.batched import BatchedWindowEngine
-        eng = BatchedWindowEngine(
-            [bam], fasta, params, LibraryCollection(), device=args.device,
-            batch_windows=args.batchWindows,
-            max_pairs_per_slab=args.maxPairsPerSlab,
-            exact_ties=args.hmmBackend != "pallas", dtype=np.float32)
-    else:
-        from dindel_tpu_torch.engine.window import WindowEngine
-        eng = WindowEngine([bam], fasta, params, LibraryCollection(),
-                           hmm_backend=args.hmmBackend, device=args.device)
+    def __init__(self, engine):
+        super().__init__()
+        self.engine = engine
+
+
+@contextlib.contextmanager
+def _taken_when_built():
+    """While open, an engine's construction ends by raising _Built with
+    the engine: the CLI that builds one stops before it runs a window."""
+    from dindel_tpu_torch.engine.batched import BatchedWindowEngine
+    from dindel_tpu_torch.engine.window import WindowEngine
+    saved = {}
+    for cls in (BatchedWindowEngine, WindowEngine):
+        saved[cls] = cls.__dict__["__init__"]
+
+        def init(self, *a, _cls=cls, _real=saved[cls], **kw):
+            _real(self, *a, **kw)
+            if type(self) is _cls:
+                raise _Built(self)
+        cls.__init__ = init
+    try:
+        yield
+    finally:
+        for cls, real in saved.items():
+            cls.__init__ = real
+
+
+def build_engine(cfg: dict, fasta: str, bams: list, bam_list: str,
+                 device: str):
+    """The engine that `python -m dindel_tpu_torch` builds for the
+    configuration's CLI arguments, with `--bamFile` for one BAM and
+    `--bamFiles <bam_list>` for more: the CLI's own construction runs
+    (the BAM list, --libFile, --mesh, the engine kind and its arguments)
+    and the engine is taken as it is built, with the harness's RunStats
+    then put in place of its own.  --stageProcs (staging processes
+    feeding a device server) is no one engine and is refused."""
+    from dindel_tpu_torch import cli
+
+    argv = list(cfg["cli"]) + (
+        ["--bamFile", bams[0]] if len(bams) == 1 else ["--bamFiles", bam_list]
+    ) + ["--ref", fasta, "--device", device]
+    if cli.build_parser().parse_args(argv).stageProcs > 0:
+        raise ValueError("--stageProcs runs staging processes and a device "
+                         "server, not one engine: the harness cannot drive "
+                         "it")
+    eng = None
+    with _taken_when_built():
+        try:
+            cli.main(argv)
+        except _Built as built:
+            eng = built.engine
+    if eng is None:
+        raise ValueError(f"the CLI built no engine for {cfg['cli']}")
     eng.stats = HarnessStats()
     eng.rescued_windows = 0
     rescue = getattr(eng, "_rescue_slab", None)
@@ -156,12 +183,14 @@ def run_passes(eng, windows: str, out_dir: Path, seconds: float):
     """Drive `eng` over `windows` in whole passes for `seconds`; each pass
     writes out_dir/pass<k>.glf.txt.  Returns the window's start and
     deadline, the whole passes and their ends, the completion samples,
-    the GLF paths, the stage seconds at the start and at the deadline,
-    the count completed at the deadline and the windows rescued."""
+    the GLF paths, the stage seconds and the program's counters at the
+    start and at the deadline, the count completed at the deadline and
+    the windows rescued."""
     stats = eng.stats
     poll = Completions(stats)
     with stats.lock:
         stage0 = dict(stats.stage_seconds)
+        counts0 = dict(getattr(stats, "counts", {}))
     rescued0 = eng.rescued_windows
     poll.start()
     t0 = poll.samples[0][0]
@@ -174,6 +203,7 @@ def run_passes(eng, windows: str, out_dir: Path, seconds: float):
         time.sleep(max(0.0, deadline - time.perf_counter()))
         with stats.lock:
             closing["stage"] = dict(stats.stage_seconds)
+            closing["counts"] = dict(getattr(stats, "counts", {}))
         closing["n"] = completed(stats)
         closing["rescued"] = eng.rescued_windows
 
@@ -200,4 +230,5 @@ def run_passes(eng, windows: str, out_dir: Path, seconds: float):
     return dict(t0=t0, deadline=deadline, passes=passes,
                 pass_ends=pass_ends, samples=poll.samples, glfs=glfs,
                 stage_open=stage0, stage_close=closing["stage"],
+                counts_open=counts0, counts_close=closing["counts"],
                 n_close=closing["n"], rescued=closing["rescued"] - rescued0)

@@ -1,13 +1,16 @@
-"""Inputs of a benchmark run, made from the seed: a FASTA, an indexed BAM
-and one window file, as the documented pipeline (getCIGARindels, then
-makeWindows) would hand them to `--analysis indels`.
+"""Inputs of a benchmark run, made from the seed: a FASTA, one indexed BAM
+per sample, the list of the BAMs and one window file, as the documented
+pipeline (getCIGARindels, then makeWindows) would hand them to
+`--analysis indels`.
 
 make_dataset(out_dir, seq, traffic, seed) -> dict of paths and counts.
-The candidates are what getCIGARindels reports from the reads' CIGARs
+The design's `samples` (default 1) each get their own genotypes, reads
+at the design's `coverage` and read group (sim.py).  The candidates are
+what getCIGARindels reports from the CIGARs of every sample's reads
 (the planted indels, and insertions whose bases carry a sequencing
 error); makeWindows's clustering and window geometry are applied to
 them here.  A CPU test runs the program's own getCIGARindels and
-makeWindows on the generated BAM and gets the same window file."""
+makeWindows on the generated BAMs and gets the same window file."""
 
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 
 from .bamfile import write_bam, write_fasta
-from .sim import make_genome, make_reads
+from .sim import genome_of, make_genome, make_reads, sample_sites
 
 REF_NAME = "1"
 
@@ -94,20 +97,41 @@ def window_lines(cands: Dict[int, List[str]], chrom: str = REF_NAME,
 
 
 def make_dataset(out_dir: str, seq: dict, traffic: dict, seed: int) -> dict:
-    """Write sim.fa(.fai), sim.bam(.bai) and windows.txt into out_dir."""
+    """Write sim.fa(.fai), the BAMs with their .bai (sim.bam for one
+    sample; sample<k>.bam, read group rg<k+1>, SM <sample><k> for more),
+    bams.txt (one BAM path a line, as --bamFiles reads it) and
+    windows.txt into out_dir."""
     os.makedirs(out_dir, exist_ok=True)
+    n_samples = int(seq.get("samples", 1))
     genome = make_genome(seq, traffic, seed)
-    reads = make_reads(genome, seq, seed)
     ref = genome[0]
     fa = os.path.join(out_dir, "sim.fa")
-    bam = os.path.join(out_dir, "sim.bam")
     win = os.path.join(out_dir, "windows.txt")
     write_fasta(fa, REF_NAME, ref)
-    write_bam(bam, REF_NAME, ref.shape[0], seq["sample"], reads,
-              int(seq["base_qual"]), int(seq["mapq"]))
-    lines = window_lines(candidates(ref, reads))
+    cands: Dict[int, List[str]] = {}
+    bams, n_reads, first_pair = [], 0, 0
+    for k, sites in enumerate(sample_sites(genome[3], traffic, n_samples,
+                                           seed)):
+        g = genome if sites is genome[3] else genome_of(ref, sites)
+        reads = make_reads(g, seq, seed, sample=k, first_pair=first_pair)
+        one = n_samples == 1
+        bam = os.path.join(out_dir, "sim.bam" if one else f"sample{k}.bam")
+        write_bam(bam, REF_NAME, ref.shape[0],
+                  seq["sample"] if one else f"{seq['sample']}{k}", reads,
+                  int(seq["base_qual"]), int(seq["mapq"]), rg=f"rg{k + 1}",
+                  library=f"lib{k + 1}")
+        for pos, alleles in candidates(ref, reads).items():
+            have = cands.setdefault(pos, [])
+            have += [a for a in alleles if a not in have]
+        bams.append(bam)
+        n_reads += int(reads.pos.shape[0])
+        first_pair += reads.pos.shape[0] // 2
+    bam_list = os.path.join(out_dir, "bams.txt")
+    with open(bam_list, "w") as f:
+        f.write("".join(b + "\n" for b in bams))
+    lines = window_lines(cands)
     with open(win, "w") as f:
         f.write("\n".join(lines) + "\n")
-    return dict(fasta=fa, bam=bam, windows=win, n_windows=len(lines),
-                n_reads=int(reads.pos.shape[0]), ref_len=int(ref.shape[0]),
-                sites=genome[3])
+    return dict(fasta=fa, bam=bams[0], bams=bams, bam_list=bam_list,
+                windows=win, n_windows=len(lines), n_reads=n_reads,
+                ref_len=int(ref.shape[0]), sites=genome[3])

@@ -3,8 +3,8 @@ coordinate-sorted BAM with its .bai index, and a FASTA with its .fai.
 
 The records are packed from numpy arrays in bulk; BGZF blocks are
 compressed by zlib on a few threads.  Every record has the read length
-of the design, mapping quality `mapq`, one quality value, the tag
-RG:Z:rg1 and the name r<pair>."""
+of the design, mapping quality `mapq`, one quality value, the tag RG:Z
+of the file's one read group and the name r<pair>."""
 
 from __future__ import annotations
 
@@ -89,10 +89,12 @@ def _pack(parts, n: int, chunk: int = 1 << 17) -> np.ndarray:
 
 def write_bam(path: str, ref_name: str, ref_len: int, sample: str, reads,
               base_qual: int, mapq: int, level: int = 6,
-              threads: int = 4) -> None:
-    """`reads` (sim.Reads) sorted by position, as a BAM and its .bai.
-    Records are packed in bulk with numpy; BGZF blocks are compressed on
-    `threads` threads (zlib lets go of the interpreter's lock)."""
+              threads: int = 4, rg: str = "rg1",
+              library: str = "lib1") -> None:
+    """`reads` (sim.Reads) sorted by position, as a BAM and its .bai,
+    with one read group (`rg`, its library and `sample`).  Records are
+    packed in bulk with numpy; BGZF blocks are compressed on `threads`
+    threads (zlib lets go of the interpreter's lock)."""
     order = np.argsort(reads.pos, kind="stable")
     n, L = reads.seq.shape
     op, at, ln = (reads.ev_op[order], reads.ev_at[order],
@@ -116,14 +118,15 @@ def write_bam(path: str, ref_name: str, ref_len: int, sample: str, reads,
 
     seq4 = _NT16[reads.seq[order]]
     Lp = (L + 1) // 2
-    tail = np.empty((n, Lp + L + 7), np.uint8)
+    tag = b"RGZ" + rg.encode() + b"\x00"
+    tail = np.empty((n, Lp + L + len(tag)), np.uint8)
     tail[:, :L // 2 + L % 2] = seq4[:, 0::2] << 4
     tail[:, :L // 2] |= seq4[:, 1::2]
     tail[:, Lp:Lp + L] = base_qual
-    tail[:, Lp + L:] = np.frombuffer(b"RGZrg1\x00", np.uint8)
+    tail[:, Lp + L:] = np.frombuffer(tag, np.uint8)
 
     text = (f"@HD\tVN:1.3\tSO:coordinate\n@SQ\tSN:{ref_name}\tLN:{ref_len}\n"
-            f"@RG\tID:rg1\tLB:lib1\tSM:{sample}\n").encode()
+            f"@RG\tID:{rg}\tLB:{library}\tSM:{sample}\n").encode()
     name_b = ref_name.encode() + b"\x00"
     header = (b"BAM\x01" + struct.pack("<i", len(text)) + text
               + struct.pack("<ii", 1, len(name_b)) + name_b

@@ -1,11 +1,22 @@
-"""The benchmark's data: one diploid genome and its reads, made from a seed.
+"""The benchmark's data: diploid genomes and their reads, made from a seed.
 
 make_genome(seq, traffic, seed) plants one variant site every `spacing`
-bases of a random contig and returns the reference, the two haplotypes
-and the planted sites.  make_reads(genome, seq, seed) samples paired
-reads from the two haplotypes at the sequencing design's coverage, with
-substitution errors and each read's true alignment.  Both are
-vectorised with numpy, so a 1000-site genome at 30x takes seconds.
+bases of a random contig and returns the reference, sample 0's two
+haplotypes and the planted sites.  sample_sites(sites, traffic,
+n_samples, seed) gives every sample of a design its genotypes at those
+sites: sample 0's as planted and each other sample's drawn alike, or,
+with the traffic's `pool_allele_counts`, each site's count of alternate
+copies among the pool's 2N haplotypes and the haplotypes that carry
+them.  make_reads(genome, seq, seed, sample) samples paired reads from a
+sample's two haplotypes at the sequencing design's coverage, with
+substitution errors and each read's true alignment.  All are vectorised
+with numpy, so a 1000-site genome at 30x takes seconds.
+
+Random streams (_rng's second word): 1 the contig, the sites and sample
+0's genotypes; 2 sample 0's reads; 3 is check.py's; 4 a pool's allele
+counts and carriers; 16 + 2k sample k's genotypes and 17 + 2k its reads
+(k >= 1).  So one sample without `pool_allele_counts` draws what a
+design of one sample always drew.
 
 Every planted indel is left-normalised (the base before it differs from
 its last base), so the CIGAR position of each read's indel is the
@@ -47,6 +58,7 @@ def random_contig(rng: np.random.Generator, n: int, hp_rate: float
 class Site:
     pos: int            # 0-based position of the event on the reference
     alleles: Tuple[str, str]   # hap A's and hap B's event ("" = reference)
+    alts: Tuple[str, ...] = ()  # the alternate alleles planted here
 
 
 def _other(rng, avoid: bytes) -> int:
@@ -108,6 +120,25 @@ def _shares(weights, n: int, rng) -> np.ndarray:
     return rng.permutation(np.repeat(np.arange(len(w)), counts))
 
 
+def _genotype_draws(traffic: dict, n_sites: int, rng):
+    """(compound, het, side) of each site: every draw gives the same
+    multiset (the traffic's shares, rounded), in its own order."""
+    compound = _shares([traffic["compound_share"],
+                        1 - traffic["compound_share"]], n_sites, rng) == 0
+    het = _shares([traffic["het_share"], 1 - traffic["het_share"]],
+                  n_sites, rng) == 0
+    side = _shares([1, 1], n_sites, rng)
+    return compound, het, side
+
+
+def _alleles(alts, compound: bool, het: bool, side: int) -> Tuple[str, str]:
+    if len(alts) > 1 and compound:
+        return alts[0], alts[1]
+    if het:
+        return (alts[0], "") if side == 0 else ("", alts[0])
+    return alts[0], alts[0]
+
+
 def make_genome(seq: dict, traffic: dict, seed: int):
     """(reference, hap A, hap B, sites) as uint8 arrays of ASCII bases and
     a list of Site.  `traffic` gives the sites (count, spacing), the mix
@@ -123,22 +154,50 @@ def make_genome(seq: dict, traffic: dict, seed: int):
     # every seed plants the same multiset of site kinds, genotypes and
     # haplotype sides (the mix's shares, rounded), in its own order
     kinds = _shares([m["weight"] for m in mix], n_sites, rng)
-    compound = _shares([traffic["compound_share"],
-                        1 - traffic["compound_share"]], n_sites, rng) == 0
-    het = _shares([traffic["het_share"], 1 - traffic["het_share"]],
-                  n_sites, rng) == 0
-    side = _shares([1, 1], n_sites, rng)
+    compound, het, side = _genotype_draws(traffic, n_sites, rng)
     sites = []
     for i in range(n_sites):
         pos, alts = _plant(ref, pad + (i + 1) * spacing, mix[kinds[i]], rng)
-        if len(alts) > 1 and compound[i]:
-            alleles = (alts[0], alts[1])
-        elif het[i]:
-            alleles = (alts[0], "") if side[i] == 0 else ("", alts[0])
-        else:
-            alleles = (alts[0], alts[0])
-        sites.append(Site(pos, alleles))
+        sites.append(Site(pos, _alleles(alts, compound[i], het[i], side[i]),
+                          tuple(alts)))
+    return genome_of(ref, sites)
+
+
+def genome_of(ref: np.ndarray, sites: List[Site]):
+    """(reference, hap A, hap B, sites) of one sample's sites."""
     return ref, _haplotype(ref, sites, 0), _haplotype(ref, sites, 1), sites
+
+
+def sample_sites(sites: List[Site], traffic: dict, n_samples: int,
+                 seed: int) -> List[List[Site]]:
+    """Each sample's sites with its own genotypes.  Without the traffic's
+    `pool_allele_counts`, sample 0 keeps `sites` and sample k >= 1 draws
+    its genotypes as make_genome drew sample 0's (stream 16 + 2k).  With
+    it (weights over 1 .. 2N alternate copies among the N samples' 2N
+    haplotypes), each site's count is drawn, every seed the same
+    multiset (stream 4), then which haplotypes carry the site's first
+    alternate allele."""
+    weights = traffic.get("pool_allele_counts")
+    n = len(sites)
+    if weights is None:
+        out = [sites]
+        for k in range(1, n_samples):
+            draws = _genotype_draws(traffic, n, _rng(seed, 16 + 2 * k))
+            out.append([Site(s.pos, _alleles(s.alts, *(d[i] for d in draws)),
+                             s.alts) for i, s in enumerate(sites)])
+        return out
+    n_haps = 2 * n_samples
+    if len(weights) != n_haps:
+        raise ValueError(f"pool_allele_counts has {len(weights)} weights; "
+                         f"a pool of {n_samples} samples has {n_haps} "
+                         f"haplotypes")
+    rng = _rng(seed, 4)
+    count = _shares(weights, n, rng) + 1
+    rank = np.argsort(np.argsort(rng.random((n, n_haps)), axis=1), axis=1)
+    carry = rank < count[:, None]
+    return [[Site(s.pos, tuple(s.alts[0] if carry[i, 2 * k + j] else ""
+                               for j in (0, 1)), s.alts)
+             for i, s in enumerate(sites)] for k in range(n_samples)]
 
 
 @dataclass
@@ -215,14 +274,17 @@ class Reads:
         return [(o, k) for o, k in ((0, at), (op, n), (0, rest)) if k > 0]
 
 
-def make_reads(genome, seq: dict, seed: int) -> Reads:
+def make_reads(genome, seq: dict, seed: int, sample: int = 0,
+               first_pair: int = 0) -> Reads:
     """Pairs of reads of `seq`'s read length at its coverage (read bases
     over reference length), each pair from hap A or B with probability
     one half, insert sizes from a normal of the design's mean and sd (at
     least two read lengths + 2), mate 2 reverse; substitution errors at
-    the design's rate (a random base, which may equal the true one)."""
+    the design's rate (a random base, which may equal the true one).
+    `sample` picks the random stream; pairs are numbered from
+    `first_pair`, so that no two samples' reads share a name."""
     ref, hap_a, hap_b, _ = genome
-    rng = _rng(seed, 2)
+    rng = _rng(seed, 2 if sample == 0 else 17 + 2 * sample)
     L = int(seq["read_len"])
     n_pairs = int(seq["coverage"]) * ref.shape[0] // (2 * L)
     which = rng.random(n_pairs) < 0.5
@@ -259,7 +321,7 @@ def make_reads(genome, seq: dict, seed: int) -> Reads:
                  flag=np.tile(np.array([flag1, flag2]), n_pairs),
                  mpos=pos[:, ::-1].reshape(-1),
                  isize=np.stack([tlen, -tlen], 1).reshape(-1),
-                 pair=np.repeat(np.arange(n_pairs), 2))
+                 pair=np.repeat(first_pair + np.arange(n_pairs), 2))
 
 
 def _align(hap: Haplotype, s: np.ndarray, L: int):

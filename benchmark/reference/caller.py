@@ -1,6 +1,6 @@
 """The plain reference of `--analysis indels --doDiploid`: the GLF rows of
-chosen windows of a window file, worked out from the FASTA, the BAM and
-the window lines alone.
+chosen windows of a window file, worked out from the FASTA, the BAMs and
+the window lines alone (the reads of every BAM, as one individual's).
 
 Each window goes through the read-at-a-time read fetch (reads.py, a
 fresh read buffer per window), the pure-Python haplotype generation
@@ -101,15 +101,18 @@ def _haplotypes(fasta, p, reads, pos, left_pos, right_pos, candidates):
     return False, out, left_pos, right_pos
 
 
-def glf_rows(fasta_path: str, bam_path: str, window_lines: Dict[int, str],
-             params: Parameters, device="cpu", dtype=torch.float64
-             ) -> Dict[int, List[str]]:
+def glf_rows(fasta_path: str, bam_paths: List[str],
+             window_lines: Dict[int, str], flags: Dict[str, object],
+             device="cpu", dtype=torch.float64) -> Dict[int, List[str]]:
     """{window index: its GLF lines} for the given {index: window line}
-    (1-based indices, as the program numbers them)."""
-    bams = [BamReader(bam_path)]
+    (1-based indices, as the program numbers them), with the CLI's
+    defaults and `flags` (diploid_params).  A "dip" line whose counts
+    reads tied between two haplotypes could move ends in a note
+    ` #tied:<count>=<lo>-<hi>;...` (diploid.TIE; check.split_note)."""
+    bams = [BamReader(b) for b in bam_paths]
     fasta = FastaFile(fasta_path)
     libs = LibraryCollection()
-    p = params
+    p = diploid_params(flags)
     staged = []
     try:
         for index in sorted(window_lines):

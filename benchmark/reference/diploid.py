@@ -20,6 +20,17 @@ from .variants import AlignedCandidates, AlignedVariant, DEL, INS, SNP
 NEG = -math.inf
 VARSNP = 1
 VARINDEL = 2
+# A read whose likelihoods on the two haplotypes of the called pair lie
+# within TIE * max(1, |ll|) of each other is a tie in exact arithmetic:
+# which of the two the caller takes (`use1`) is decided by rounding (the
+# compiled C++'s own decides it by one ulp), so a program that rounds
+# otherwise may count it the other way.  A "dip" row whose counts such
+# reads could move carries each count's range ("tied" below).  TIE lies
+# between the largest gap the program's float32 rounding moves a read's
+# (4.2e-8) and the smallest gap of a read whose choice moves a count
+# beyond the exact ties (2.1e-5): PERF.md gives the readings
+# (benchmark/ties.py).
+TIE = 1e-6
 
 
 def _is_real_variant(av: AlignedVariant) -> bool:
@@ -337,20 +348,28 @@ def diploid_glf(haps: List[Haplotype], reads: List[Read],
 
         # per-read stats at the per-read ML haplotype of the (ghx1, ghx2)
         # pair (DInDel.cpp:3491-3561), gathered by mlidx
-        use1 = ll2d[ghx1] >= ll2d[ghx2]
+        use1, tied = read_choice(ll2d, ghx1, ghx2)
+        ranges = {}
+
+        def _count(col, v1, v2):
+            n, lo, hi = count_range(v1, v2, use1, tied)
+            if lo != hi:
+                ranges[col] = (lo, hi)
+            return n
+
         allmsq = seq_sum(mq2_v)
 
         def _pick(a2d):
             return np.where(use1, a2d[ghx1], a2d[ghx2])
 
         num_off_both = int((A.off[ghx1] & A.off[ghx2]).sum())
-        num_mapped_indels = int(np.where(use1, A.nind_entries_row(ghx1),
-                                         A.nind_entries_row(ghx2)).sum())
-        n_bqt = int(_pick(A.nbqt).sum())
-        nmm_bqt = int(_pick(A.nmmbqt).sum())
+        num_mapped_indels = _count("num_indel", A.nind_entries_row(ghx1),
+                                   A.nind_entries_row(ghx2))
+        n_bqt = _count("nBQT", A.nbqt[ghx1], A.nbqt[ghx2])
+        nmm_bqt = _count("nmmBQT", A.nmmbqt[ghx1], A.nmmbqt[ghx2])
         m_log_bq = seq_sum(_pick(A.mlogbq))
-        n_mm_left = int((_pick(A.nmml) >= 2).sum())
-        n_mm_right = int((_pick(A.nmmr) >= 2).sum())
+        n_mm_left = _count("nMMLeft", A.nmml[ghx1] >= 2, A.nmml[ghx2] >= 2)
+        n_mm_right = _count("nMMRight", A.nmmr[ghx1] >= 2, A.nmmr[ghx2] >= 2)
 
         def _cov_at(h):
             hit = haps[h].indels.get(p)
@@ -360,9 +379,11 @@ def diploid_glf(haps: List[Haplotype], reads: List[Read],
                 return A.snp_covered(h, p)
             return np.zeros(nr, bool)
 
-        cov = np.where(use1, _cov_at(ghx1), _cov_at(ghx2))
-        nf = int((cov & ~reverse_v).sum())
-        nr_count = int((cov & reverse_v).sum())
+        cov1, cov2 = _cov_at(ghx1), _cov_at(ghx2)
+        cov = np.where(use1, cov1, cov2)
+        nf = _count("num_cover_forward", cov1 & ~reverse_v, cov2 & ~reverse_v)
+        nr_count = _count("num_cover_reverse", cov1 & reverse_v,
+                          cov2 & reverse_v)
         n = int(cov.sum())
         msq = seq_sum(mq2_v[cov])
         msq = math.sqrt(msq / n) if n != 0 else 0.0
@@ -411,10 +432,32 @@ def diploid_glf(haps: List[Haplotype], reads: List[Read],
                    var_coverage_reverse=",".join(o_cov_r),
                    glf=",".join(glf_parts),
                    num_unmapped_realigned=num_unmapped_realigned2)
+        if ranges:
+            row["tied"] = ";".join(f"{c}={lo}-{hi}"
+                                   for c, (lo, hi) in ranges.items())
         rows.append(row)
         if params.output_glf:
             _emit(glf_data, row)
     return rows
+
+
+def read_choice(ll2d, h1: int, h2: int):
+    """(use1, tied) of every read at the pair (h1, h2): whether the caller
+    takes h1 (DInDel.cpp:3491-3561), and whether rounding decides it."""
+    import numpy as np
+    l1, l2 = ll2d[h1], ll2d[h2]
+    return l1 >= l2, np.abs(l1 - l2) <= TIE * np.maximum(1.0, np.abs(l2))
+
+
+def count_range(v1, v2, use1, tied):
+    """(count, lo, hi): the count over reads of v1 (the pair's first
+    haplotype) or v2 (its second) as use1 picks, and its range over the
+    tied reads' two choices."""
+    import numpy as np
+    pick = np.where(use1, v1, v2)
+    lo = int(np.where(tied, np.minimum(v1, v2), pick).sum())
+    hi = int(np.where(tied, np.maximum(v1, v2), pick).sum())
+    return int(pick.sum()), lo, hi
 
 
 class _WindowThrow(Exception):
@@ -430,5 +473,8 @@ def _emit(glf_data: Optional[OutputData], row: dict) -> None:
         return
     line = glf_data.line()
     for k, v in row.items():
-        line.set(k, v)
+        if k == "tied":
+            line.note = "tied:" + v
+        else:
+            line.set(k, v)
     glf_data.output(line)

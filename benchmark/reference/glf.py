@@ -51,11 +51,14 @@ class OutputData:
 
 
 class Line:
-    """One output row with NA defaults (OutputData.hpp:65-102)."""
+    """One output row with NA defaults (OutputData.hpp:65-102); a note,
+    where set, follows the columns after ' #' (the benchmark's own
+    remark on the row, not a GLF column)."""
 
     def __init__(self, od: OutputData):
         self._od = od
         self.data = ["NA"] * len(od.columns)
+        self.note = ""
 
     def set(self, label: str, value) -> "Line":
         idx = self._od.label_to_column.get(label)
@@ -73,10 +76,12 @@ class Line:
     def copy(self) -> "Line":
         ln = Line(self._od)
         ln.data = list(self.data)
+        ln.note = self.note
         return ln
 
     def to_string(self) -> str:
-        return " ".join(self.data)
+        text = " ".join(self.data)
+        return text + " #" + self.note if self.note else text
 
 
 def make_glf_output(out: TextIO) -> OutputData:

@@ -4,17 +4,23 @@
                              --trace <0|1>
 
 The cell (BENCHMARK.json) names a configuration (configs/<name>.json:
-the engine and its CLI arguments, the sequencing design) and a traffic
-mix (traffic/<name>.json: the planted sites).  A run makes the FASTA,
-BAM and window file from the seed (gen/), builds the engine as
-`python -m dindel_tpu_torch --analysis indels` builds it, warms it up
-over the first windows, then drives it over the window file in whole
+the engine and its CLI arguments, the sequencing design and its
+samples, the plain reference and the value columns of its check) and a
+traffic mix (traffic/<name>.json: the planted sites).  A run makes the
+FASTA, the BAMs and the window file from the seed (gen/), takes the
+engine `python -m dindel_tpu_torch --analysis indels` builds, warms it
+up over the first windows, then drives it over the window file in whole
 passes for --seconds (drive.py).  Untraced, it reports the cell's
-end-to-end metrics (windows_per_s, setup_s); with --trace 1 the window
-runs under torch.profiler and the run reports the per-layer metrics
-(metrics/<name>.py), busy_s, window_s and the breakdown.  After the
-window the engine is freed and the plain reference (reference/) works
-out the GLF rows of sampled windows again; check.py decides `correct`.
+end-to-end metrics: device_ms_per_window (the card's busy time, by a
+profiler of CUDA activity alone, from the window's start until every
+window staged in it has finished, over the windows completed in that
+span) and setup_s; with --trace 1 the window runs under torch.profiler
+and the run reports the per-layer metrics (metrics/<name>.py, reading
+the window's rate, stage seconds, counters and trace), busy_s, window_s
+and the breakdown.  After the window the
+engine is freed and the configuration's plain reference
+(reference/<reference>.py, default caller) works out the GLF rows of
+sampled windows again; check.py decides `correct`.
 
 Needs a CUDA card; without one it exits non-zero before any work.
 `--cpu-rehearsal` (never used for a measurement) runs the same control
@@ -124,7 +130,8 @@ def run(args, bench, cell, cfg, traffic, device, rehearse, work) -> int:
              if x.strip()]
     log(f"[data] {data['n_windows']} windows, {data['n_reads']} reads, "
         f"contig {data['ref_len']} bp, made in {gen_s:.3f} s")
-    eng = drive.build_engine(cfg, data["fasta"], data["bam"], device)
+    eng = drive.build_engine(cfg, data["fasta"], data["bams"],
+                             data["bam_list"], device)
     warm = work / "warmup.txt"
     warm.write_text("\n".join(lines[:int(cfg["warmup_windows"])]) + "\n")
     eng.detect_indels(str(warm), str(work / "warmup.glf.txt"))
@@ -136,19 +143,31 @@ def run(args, bench, cell, cfg, traffic, device, rehearse, work) -> int:
     if args.trace:
         launches = tracing.Launches(eng.stats)
         launches.install()
-        eng.stats.spans = True
         trace = tracing.Trace(work)
         trace.start()
     setup_s = time.perf_counter() - T_START
+    device_time = None
+    if not args.trace and not rehearse:
+        device_time = tracing.DeviceTime(work)
+        device_time.start()
+    done0 = drive.completed(eng.stats)
     host0 = host_clocks()
     res = drive.run_passes(eng, data["windows"], out_dir, args.seconds)
     host1 = host_clocks()
+    device_ms = None
+    if device_time is not None:
+        # every window staged in the window has finished: its device work
+        # and its completion are both in the span
+        busy = device_time.stop()
+        done = drive.completed(eng.stats) - done0
+        device_ms = 1e3 * busy / done if done > 0 else None
+        log(f"[device] busy {busy!r} s from the window's start to its last "
+            f"finished window; {done} windows completed in that span")
     log("[host] over the passes: " + ", ".join(
         f"{k} {host1[k] - host0[k]:.3f}" for k in host0)
         + f"; load {os.getloadavg()}; cpus {os.cpu_count()}")
     record = None
     if args.trace:
-        eng.stats.spans = False
         events = trace.stop()
         launches.uninstall()
         record = tracing.reduce(events, args.seconds, launches)
@@ -161,13 +180,16 @@ def run(args, bench, cell, cfg, traffic, device, rehearse, work) -> int:
     n_window = res["n_close"] - res["samples"][0][1]
     stage_s = {k: res["stage_close"].get(k, 0.0) - res["stage_open"].get(k, 0.0)
                for k in res["stage_close"]}
+    counts = {k: res["counts_close"].get(k, 0) - res["counts_open"].get(k, 0)
+              for k in res["counts_close"]}
     log("[stages] ms per window in the window: " + ", ".join(
         f"{k} {1e3 * v / max(n_window, 1):.3f}" for k, v in stage_s.items()))
     log(f"[window] {res['passes']} whole passes of {data['n_windows']} "
         f"windows; {n_window} windows completed before the deadline; rate "
         f"interval {interval}; rescued windows {res['rescued']}; "
         f"windows ok {eng.stats.windows_ok}, error rows "
-        f"{eng.stats.windows_error} {eng.stats.error_messages}")
+        f"{eng.stats.windows_error} {eng.stats.error_messages}; counts in "
+        f"the window {counts}")
     eng.close()
     del eng
     gc.collect()
@@ -179,18 +201,22 @@ def run(args, bench, cell, cfg, traffic, device, rehearse, work) -> int:
     chosen = check.sample(passes, len(lines), int(cfg["check_windows"]),
                           args.seed)
     t_ref = time.perf_counter()
-    from benchmark.reference.caller import diploid_params, glf_rows
-    ref = glf_rows(data["fasta"], data["bam"],
-                   {i: lines[i - 1] for i in chosen},
-                   diploid_params(cfg.get("dindel_flags", {})),
-                   device=device)
-    nums = check.numbers(passes, ref)
+    reference = spec.reference(cfg.get("reference", "caller"))
+    chosen_lines = {i: lines[i - 1] for i in chosen}
+    ref = reference.glf_rows(data["fasta"], data["bams"], chosen_lines,
+                             cfg.get("dindel_flags", {}), device=device)
+    row = check.row_comparison(cfg.get("value_columns", check.VALUES),
+                               reference)
+    nums = check.numbers(passes, ref, row)
     correct, rows = check.verdict(nums, cfg["limits"])
     log(f"[check] windows {chosen}; {nums['compared']} (pass, window) "
-        f"pairs compared; reference {time.perf_counter() - t_ref:.3f} s; "
-        f"not compared: " + ", ".join(
-            f"{k} {v!r}" for k, v in nums.items()
-            if k not in cfg["limits"] and k != "compared"))
+        f"pairs compared; reference {reference.__name__} "
+        f"{time.perf_counter() - t_ref:.3f} s; not compared: " + ", ".join(
+            f"{k} {nums[k]!r}" for k in check.NUMBERS
+            if k not in cfg["limits"]))
+    for line in check.over_limit(nums, cfg["limits"], passes, ref,
+                                 chosen_lines, row):
+        log("[check] over its limit: " + line)
 
     found = forbidden_modules()
     if found:
@@ -203,14 +229,14 @@ def run(args, bench, cell, cfg, traffic, device, rehearse, work) -> int:
     metrics = {}
     wanted = spec.metrics_of(bench, cell["name"], bool(args.trace))
     if not args.trace:
-        values = {"windows_per_s": (interval[0] / interval[1]
-                                    if interval else None),
-                  "setup_s": setup_s}
+        values = {"device_ms_per_window": device_ms, "setup_s": setup_s}
         for m in wanted:
             metrics[m["name"]] = {"value": values[m["name"]],
                                   "unit": m["unit"]}
     elif record is not None:
-        record.update(windows=n_window, stage_s=stage_s)
+        record.update(windows=n_window, stage_s=stage_s, counts=counts,
+                      windows_per_s=(interval[0] / interval[1]
+                                     if interval else None))
         for m in wanted:
             v = spec.reader(m["name"])(record)
             if v is not None:

@@ -1,13 +1,16 @@
 """What a run is, found by name: the cell in BENCHMARK.json, its
 configuration (configs/<config>.json), its traffic mix
-(traffic/<traffic>.json) and its per-layer metrics (one reader each in
-metrics/<metric>.py).  Adding a cell, a mix or a metric adds files and
-edits none."""
+(traffic/<traffic>.json), the plain reference its configuration names
+(reference/<name>.py, default `caller`) and its per-layer metrics (one
+reader each in metrics/<metric>.py).  Adding a cell, a mix, a reference
+or a metric adds files and edits none."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
+import re
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
@@ -68,3 +71,18 @@ def reader(name: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def reference(name: str):
+    """The module benchmark/reference/<name>.py, whose
+    glf_rows(fasta, bams, window_lines, flags, device=..., dtype=...)
+    gives {window index: its GLF rows} for the configuration's
+    `dindel_flags`."""
+    if not re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", name):
+        raise SpecError(f"no reference {name!r}: a module name is needed")
+    try:
+        return importlib.import_module("benchmark.reference." + name)
+    except ModuleNotFoundError as e:
+        if e.name != "benchmark.reference." + name:
+            raise
+        raise SpecError(f"no reference module {HERE / 'reference' / name}.py")

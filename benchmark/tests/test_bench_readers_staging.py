@@ -1,7 +1,6 @@
 """The readers of the host-staging sub-stages and the main thread's wait
 on the finish worker, and the idle time of a trace whose layer spans
-nest sub-stage spans (as the program opens them, each also wrapped by
-the harness under the same name)."""
+nest sub-stage spans (as the program opens them)."""
 
 import pytest
 
@@ -39,15 +38,14 @@ def ev(name, ts, dur, cat="user_annotation", tid=1):
 
 
 def test_idle_gaps_name_the_innermost_sub_stage():
-    """Each span twice (harness and program), the sub-stage inside its
+    """Each span once (the program's own), the sub-stage inside its
     layer: the idle time goes to the sub-stage, the bare layer keeps
     what its sub-stages leave, and batch_wait on the main thread is
     named."""
-    spans = []
-    for name, ts, dur in (("layer.get_reads", 0.0, 500000.0),
-                          ("layer.get_reads.fetch", 100000.0, 200000.0),
-                          ("layer.batch_wait", 600000.0, 100000.0)):
-        spans += [ev(name, ts, dur), ev(name, ts + 1.0, dur - 2.0)]
+    spans = [ev(name, ts, dur) for name, ts, dur in (
+        ("layer.get_reads", 0.0, 500000.0),
+        ("layer.get_reads.fetch", 100000.0, 200000.0),
+        ("layer.batch_wait", 600000.0, 100000.0))]
     events = [ev("benchmark.window", 0.0, 1e6)] + spans + [
         ev("void pair_hmm_dp_warp<float, false>(int const*)", 900000.0,
            100000.0, "kernel")]

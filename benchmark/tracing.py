@@ -145,6 +145,40 @@ class Trace:
         return events
 
 
+class DeviceTime:
+    """torch.profiler with CUDA activity alone, from the window's start
+    until every window staged in it has finished: the card's busy
+    seconds over that span (device_busy_s)."""
+
+    def __init__(self, work_dir: Path):
+        self.path = Path(work_dir) / "device.json"
+        self.prof = None
+
+    def start(self):
+        import torch
+        self.prof = torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA])
+        self.prof.__enter__()
+
+    def stop(self) -> float:
+        import torch
+        torch.cuda.synchronize()
+        self.prof.__exit__(None, None, None)
+        self.prof.export_chrome_trace(str(self.path))
+        with open(self.path) as f:
+            events = json.load(f)["traceEvents"]
+        os.unlink(self.path)
+        return device_busy_s(events)
+
+
+def device_busy_s(events) -> float:
+    """Seconds in which a kernel, copy or memset ran: the union of their
+    intervals, wherever they lie."""
+    iv = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+          if e.get("cat") in DEVICE_CATS and e.get("ph") == "X"]
+    return sum(b - a for a, b in _union(iv)) / 1e6
+
+
 def _union(iv):
     """Merged, sorted intervals."""
     out = []
